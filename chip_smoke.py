@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
-    python3 chip_smoke.py [--persons N] [--seed S] [--report PATH]
+    python3 chip_smoke.py [--report PATH]
 
 Phases (each prints its lines; any failure raises and the exit code is 1):
 
@@ -10,8 +10,8 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
   3. oracle    on a small LDBC graph, the port on the card (impl='cuda')
                against the port's pure-Python oracle (core/ref_engine.py):
                Q1-Q8 and the MIN/MAX shapes in static mode, exact
-  4. main      the main path at full width: an LDBC graph of ``--persons``
-               persons (default 100,000; zipf degrees, dynamic properties,
+  4. main      the main path at full width: an LDBC graph of PERSONS
+               persons (100,000; zipf degrees, dynamic properties,
                16 time buckets), the Q1-Q8 workload through
                ``execute_batch_out`` in static, bucket (8 queries a batch)
                and interval mode (1 query), each at the default split and at
@@ -19,12 +19,13 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                executor.  Every impl='cuda' answer is held against
                impl='torch' on the card.  The launch counters are set to 0
                just before and read just after; every kernel of the path
-               (B1, B2, B3) must have launched.
+               (B1, B2, B3) must have launched.  Peak memory is read per
+               timed call, beside the memory resident just before it.
   5. profile   one traced run (torch.profiler) of Q4, Q8 and agg-min-2hop
                in each mode: device busy share and the top kernels
   6. kernels   each kernel's wrapper against its plain PyTorch version on the
                inputs the main path gave it (the largest call of each
-               variant), timed with CUDA events beside its bound and the
+               variant, captured by re-running the job that made it), timed with CUDA events beside its bound and the
                PyTorch library call that computes the same function, where
                one exists.  B4, which no engine path reaches, is held on a
                main-path ETR delivery's edges.
@@ -39,7 +40,6 @@ power limit, and ``{"ok": true, "device": {...}}``.  Details go to
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -59,6 +59,9 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 EXACT = float(2 ** 24)
+PERSONS = 100_000             # full size; a cut changes this and is listed in PERF.md
+SEED = 1
+N_BATCH = 8                   # queries per static / bucket batch
 SOURCE = "src/repro_torch/csrc/hop_scatter.cu"
 REPLACES = {
     "fused_hop_cols": "src/repro/kernels/hop_scatter/hop_scatter.py:198",
@@ -198,13 +201,20 @@ def phase_oracle() -> None:
 
 
 class Recorder:
-    """Keeps the inputs of the largest main-path call of every kernel
-    variant, for the kernels phase (wraps the wrappers; launches are still counted
-    inside the wrappers only)."""
+    """Finds the largest main-path call of every kernel variant, then
+    captures its inputs for the kernels phase.
+
+    While the main path runs, the wrapped wrappers keep only each variant's
+    (size, job index) and no tensor, so the main path's memory is its own.
+    ``capture`` then re-runs each chosen job once and keeps the inputs of
+    that call.  Launches are still counted inside the wrappers only."""
 
     def __init__(self, HK):
         self.HK = HK
-        self.best = {}
+        self.job = None          # index of the job being run
+        self.best = {}           # variant key -> (size, job index)
+        self.inputs = {}         # variant key -> (wrapper name, args, kwargs)
+        self.capturing = False
         self.orig = {}
 
     def _wrap(self, name, key_fn, size_fn):
@@ -212,10 +222,12 @@ class Recorder:
         self.orig[name] = orig
 
         def wrapped(*a, **kw):
-            key = key_fn(*a, **kw)
-            size = size_fn(*a, **kw)
-            if key not in self.best or size > self.best[key][0]:
-                self.best[key] = (size, name, a, kw)
+            key, size = key_fn(*a, **kw), size_fn(*a, **kw)
+            if self.capturing:
+                if self.best.get(key) == (size, self.job) and key not in self.inputs:
+                    self.inputs[key] = (name, a, kw)
+            elif key not in self.best or size > self.best[key][0]:
+                self.best[key] = (size, self.job)
             return orig(*a, **kw)
 
         setattr(self.HK, name, wrapped)
@@ -238,9 +250,29 @@ class Recorder:
         for name, fn in self.orig.items():
             setattr(self.HK, name, fn)
 
+    def capture(self, run) -> None:
+        """``run(j)`` re-runs job j; keeps each variant's largest call's inputs."""
+        self.capturing = True
+        with self:
+            for j in sorted({j for _, j in self.best.values()}):
+                self.job = j
+                run(j)
+        self.capturing = False
+        missing = set(self.best) - set(self.inputs)
+        if missing:
+            raise AssertionError(f"re-run did not repeat the calls of {sorted(missing, key=str)}")
 
-def phase_main(persons: int, seed: int, device="cuda", n_batch: int = 8,
-               recorder=None):
+
+def run_job(graph, job, impl: str = "cuda"):
+    """One main-path job (name, mode, split, batch) through execute_batch_out."""
+    from repro_torch.core import engine as E
+
+    _, mode, split, batch = job
+    return E.execute_batch_out(graph, batch, impl=impl, split=split, mode=mode,
+                               n_buckets=16, device="cuda")
+
+
+def phase_main(recorder: Recorder):
     """Returns (report dict, graph, the jobs run: (name, mode, split, batch))."""
     from repro_torch.core import engine as E
     from repro_torch.core import engine_sliced as ES
@@ -248,27 +280,25 @@ def phase_main(persons: int, seed: int, device="cuda", n_batch: int = 8,
     from repro_torch.graphdata.queries import TEMPLATES, make_workload
     from repro_torch.kernels import hop_scatter as HK
 
-    on_card = torch.device(device).type == "cuda"
     t0 = time.perf_counter()
-    g = generate_ldbc(LdbcParams(n_persons=persons, dynamic=True, degree_dist="zipf",
-                                 align=16, seed=seed))
+    g = generate_ldbc(LdbcParams(n_persons=PERSONS, dynamic=True, degree_dist="zipf",
+                                 align=16, seed=SEED))
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
     g.traversal, g.etr_tables  # noqa: B018 — host CSR and ETR rank tables
     t_tables = time.perf_counter() - t0
     t0 = time.perf_counter()
-    E.prepare_gdev(g, device)
-    if on_card:
-        torch.cuda.synchronize()
+    E.prepare_gdev(g, "cuda")
+    torch.cuda.synchronize()
     t_upload = time.perf_counter() - t0
-    info = dict(persons=persons, seed=seed, n_vertices=g.n_vertices, n_edges=g.n_edges,
+    info = dict(persons=PERSONS, seed=SEED, n_vertices=g.n_vertices, n_edges=g.n_edges,
                 n_traversal_edges=2 * g.n_edges, generate_s=t_gen, tables_s=t_tables,
                 upload_s=t_upload)
-    log(f"main: graph {persons} persons: {g.n_vertices} vertices, {g.n_edges} edges, "
+    log(f"main: graph {PERSONS} persons: {g.n_vertices} vertices, {g.n_edges} edges, "
         f"{2 * g.n_edges} traversal edges; generate {t_gen:.1f}s, tables "
         f"{t_tables:.1f}s, upload {t_upload:.1f}s")
 
-    wl = make_workload(g, n_per_template=n_batch, seed=seed)
+    wl = make_workload(g, n_per_template=N_BATCH, seed=SEED)
     by_t = {t: [i.qry for i in wl if i.template == t] for t in TEMPLATES}
     jobs = []
     for t, qs in by_t.items():
@@ -279,38 +309,31 @@ def phase_main(persons: int, seed: int, device="cuda", n_batch: int = 8,
                 jobs.append((t, mode, split, batch))
     for name, q in minmax_shapes(g).items():
         for mode in (E.MODE_STATIC, E.MODE_BUCKET, E.MODE_INTERVAL):
-            jobs.append((name, mode, 0, [q] * (n_batch if mode != E.MODE_INTERVAL else 1)))
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
+            jobs.append((name, mode, 0, [q] * (N_BATCH if mode != E.MODE_INTERVAL else 1)))
 
     rows = []
     HK.reset_launches()           # counts are 0 just before the main path
-    ctx = recorder if recorder is not None else contextlib.nullcontext()
-    with ctx:
-        for t, mode, split, batch in jobs:
-            kw = dict(split=split, mode=mode, n_buckets=16, device=device)
-            out = E.execute_batch_out(g, batch, impl="cuda", **kw)  # warm-up
-            del out
+    with recorder:
+        for j, job in enumerate(jobs):
+            t, mode, split, batch = job
+            recorder.job = j
+            run_job(g, job)  # warm-up; its output is dropped at once
             before = dict(HK.LAUNCHES)
-            if on_card:
-                torch.cuda.reset_peak_memory_stats()
-            sync()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             h0 = time.perf_counter()
-            if on_card:
-                ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                ev0.record()
-            out = E.execute_batch_out(g, batch, impl="cuda", **kw)
-            if on_card:
-                ev1.record()
-            sync()
-            cuda_ms = ev0.elapsed_time(ev1) if on_card else None
+            ev0.record()
+            out = run_job(g, job)
+            ev1.record()
+            torch.cuda.synchronize()
+            cuda_ms = ev0.elapsed_time(ev1)
             host_ms = (time.perf_counter() - h0) * 1e3
-            peak = torch.cuda.max_memory_allocated() if on_card else None
+            peak = torch.cuda.max_memory_allocated()
             launches = {k: HK.LAUNCHES[k] - before[k] for k in HK.LAUNCHES}
-            ref = E.execute_batch_out(g, batch, impl="torch", **kw)
-            sync()
+            ref = run_job(g, job, impl="torch")
+            torch.cuda.synchronize()
             errs = {}
             for field in ("total", "per_vertex", "minmax"):
                 a, b = getattr(out, field), getattr(ref, field)
@@ -328,13 +351,15 @@ def phase_main(persons: int, seed: int, device="cuda", n_batch: int = 8,
             row = dict(template=t, mode=["static", "bucket", "interval"][mode], split=split,
                        n_vertices=batch[0].n_vertices, batch=len(batch), engine=engine,
                        cuda_ms=cuda_ms, host_ms=host_ms, peak_bytes=peak,
+                       resident_bytes=base, query_peak_bytes=peak - base,
                        launches=launches, errors=errs,
                        total_sum=float(out.total.double().sum()))
+            del out, ref
             rows.append(row)
             log(f"main: {t:13s} {row['mode']:8s} split={split} Q={len(batch)} {engine:6s} "
-                f"cuda_ms={cuda_ms if cuda_ms is None else round(cuda_ms, 3)} "
-                f"peak_GiB={None if peak is None else round(peak / 2**30, 2)} "
-                f"launches={launches} total={row['total_sum']:.6g} "
+                f"cuda_ms={cuda_ms:.3f} peak_GiB={peak / 2**30:.3f} "
+                f"resident_GiB={base / 2**30:.3f} launches={launches} "
+                f"total={row['total_sum']:.6g} "
                 f"n>=2^24={sum(e['n_ge_2_24'] for e in errs.values())}")
     launches = dict(HK.LAUNCHES)  # read just after the main path
     info["launches"] = launches
@@ -342,7 +367,7 @@ def phase_main(persons: int, seed: int, device="cuda", n_batch: int = 8,
     log(f"main: launches over the main path: {launches}")
     missing = [k for k in ("fused_hop_cols", "fused_hop_interval", "scatter_cols")
                if launches[k] == 0]
-    if missing and on_card:
+    if missing:
         raise AssertionError(f"main path never launched: {missing}")
     return info, g, jobs
 
@@ -350,27 +375,25 @@ def phase_main(persons: int, seed: int, device="cuda", n_batch: int = 8,
 PROFILED = ("Q4", "Q8", "agg-min-2hop")
 
 
-def phase_profile(graph, jobs, top: int = 6, device="cuda") -> list:
+def phase_profile(graph, jobs, top: int = 6) -> list:
     """Where a query's device time goes: one traced run of each PROFILED
     template in each mode (its first plan of the main path), with the idle
     share (1 - summed kernel time / traced wall time) and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import engine as E
-
     out = []
     seen = set()
-    for name, mode, split, batch in jobs:
+    for job in jobs:
+        name, mode, split, batch = job
         if name not in PROFILED or (name, mode) in seen:
             continue
         seen.add((name, mode))
-        kw = dict(split=split, mode=mode, n_buckets=16, impl="cuda", device=device)
-        E.execute_batch_out(graph, batch, **kw)
+        run_job(graph, job)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            E.execute_batch_out(graph, batch, **kw)
+            run_job(graph, job)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         # kernels only: the aten ops that launched them carry the same time
@@ -381,7 +404,7 @@ def phase_profile(graph, jobs, top: int = 6, device="cuda") -> list:
         busy_ms = sum(r[0] for r in rows)
         rec = dict(template=name, mode=["static", "bucket", "interval"][mode],
                    split=split, batch=len(batch), wall_ms=wall_ms, device_busy_ms=busy_ms,
-                   idle_share=max(0.0, 1.0 - busy_ms / wall_ms) if wall_ms else None,
+                   idle_share=1.0 - busy_ms / wall_ms,
                    top=[dict(kernel=k[:90], ms=ms, calls=c) for ms, k, c in rows[:top]])
         out.append(rec)
         log(f"profile: {name} {rec['mode']} split={split} Q={len(batch)} wall_ms={wall_ms:.3f} "
@@ -430,8 +453,8 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
         torch.cuda.empty_cache()
 
     f32 = 4
-    for key in sorted(recorder.best, key=str):
-        _, name, a, kw = recorder.best[key]
+    for key in sorted(recorder.inputs, key=str):
+        name, a, kw = recorder.inputs[key]
         mch = kw.get("mch")
         if name == "fused_hop_cols":
             state, src, w, ptr = a
@@ -490,7 +513,7 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
                   1.0 * Qn * E * C)
     # B4 on the edges of the largest main-path ETR delivery (static, C = 1)
     key = ("scatter_cols", 1, False)
-    contrib, ptr = recorder.best[key][2]
+    contrib, ptr = recorder.inputs[key][1]
     Qn, E = contrib.shape[:2]
     V = ptr.numel() - 1
     rng = np.random.default_rng(0)
@@ -514,8 +537,6 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
 def main(argv=None) -> int:
     warnings.filterwarnings("ignore", message="Sparse")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--persons", type=int, default=100_000)
-    ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--report", default=str(ROOT / "build" / "chip_smoke.json"),
                     help="where the full JSON report is written")
     args = ap.parse_args(argv)
@@ -526,8 +547,9 @@ def main(argv=None) -> int:
     phase_build()
     phase_oracle()
     rec = Recorder(HK)
-    REPORT["main"], graph, jobs = phase_main(args.persons, args.seed, recorder=rec)
+    REPORT["main"], graph, jobs = phase_main(rec)
     REPORT["profile"] = phase_profile(graph, jobs)
+    rec.capture(lambda j: run_job(graph, jobs[j]))
     kernels = phase_kernels(rec, REPORT["main"]["launches"])
     REPORT["kernels"] = kernels
     REPORT["wall_s"] = time.perf_counter() - t_start

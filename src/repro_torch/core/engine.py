@@ -100,7 +100,6 @@ def run_segment(
     stats: List[dict] = []
     fused = use_kernels(impl)
     t_src = gdev["t_src_l"]
-    t_dst = gdev["t_dst_l"]
     ptr = gdev["arr_ptr"]
 
     # ---- init superstep (first vertex predicate)
@@ -165,11 +164,10 @@ def run_segment(
             if with_minmax:
                 mch_v = mch_new
         else:
-            arrivals_v = SS.deliver(cnt_e, t_dst, ptr, V, impl=impl)
+            arrivals_v = SS.deliver(cnt_e, ptr, V, impl=impl)
             if with_minmax:
                 m_e = SS.minmax_edge(mch_v[:, t_src], cnt_e, minmax_op, mode)
-                mch_v = SS.deliver_extremum(m_e, t_dst, ptr, V, minmax_op,
-                                            impl=impl)
+                mch_v = SS.deliver_extremum(m_e, ptr, V, minmax_op, impl=impl)
         stat = dict(phase=f"hop{i}", matched_edges=wmask.sum(dim=1))
         if not fused:
             # per-edge activity would force the materialisation the fused

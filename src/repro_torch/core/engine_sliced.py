@@ -185,8 +185,7 @@ def _run_segment_sliced(gdev, v_preds, e_preds, params, pv, pe, mode,
             arrivals_v, _ = SS.fused_hop_deliver(
                 sv, src_slot, wmask, evalid, mode, ptr, nvhi - nvlo, bedges)
         else:
-            seg = gdev["t_dst_l"][lo:hi] - nvlo
-            arrivals_v = SS.deliver(cnt_e, seg, ptr, nvhi - nvlo, impl=impl)
+            arrivals_v = SS.deliver(cnt_e, ptr, nvhi - nvlo, impl=impl)
         arrivals_e = cnt_e
         prev_raw = cnt_e
         prev_eb = cur_eb

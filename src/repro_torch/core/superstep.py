@@ -364,15 +364,16 @@ def cells_to_buckets(state):
 # =========================================================================
 # delivery
 # =========================================================================
-def deliver(cnt_e, seg_ids, ptr, num_segments: int, impl: str = "torch"):
+def deliver(cnt_e, ptr, num_segments: int, impl: str = "torch"):
     """Sorted segment-sum of per-edge counts [Q, E, *TS] by arrival vertex —
-    the message delivery of one superstep.
+    the message delivery of one superstep.  ``ptr`` (int [num_segments + 1])
+    is the arrival CSR pointer of the edges.
 
-    ``'torch'`` is the segment-sum scatter over ``seg_ids`` (int [E]);
-    ``'cuda'`` runs the scatter kernel over the CSR pointer ``ptr``
-    (int32 [num_segments + 1]) of the same sorted seg_ids — identical sums
-    while counts are exact integers in float32, the engine's invariant."""
+    ``'torch'`` is the segment-sum scatter over the edges' arrival ids;
+    ``'cuda'`` runs the scatter kernel over ``ptr`` — identical sums while
+    counts are exact integers in float32, the engine's invariant."""
     if not use_kernels(check_impl(impl)):
+        seg_ids = HK.segment_ids(ptr, cnt_e.shape[1])
         out = cnt_e.new_zeros((cnt_e.shape[0], num_segments) + tuple(cnt_e.shape[2:]))
         return out.index_add_(1, seg_ids, cnt_e)
     return HK.scatter_cols(cnt_e.contiguous(), ptr)
@@ -470,15 +471,15 @@ def minmax_edge(mch_src, cnt_e, op: int, mode: int):
                        torch.full_like(mch_src, minmax_neutral(op)))
 
 
-def deliver_extremum(m_e, seg_ids, ptr, num_segments: int, op: int,
-                     impl: str = "torch"):
+def deliver_extremum(m_e, ptr, num_segments: int, op: int, impl: str = "torch"):
     """Extremum twin of ``deliver``: sorted segment min/max of the per-edge
     channel [Q, E] by arrival vertex; empty segments hold the neutral."""
     neutral = minmax_neutral(op)
     if not use_kernels(check_impl(impl)):
+        seg_ids = HK.segment_ids(ptr, m_e.shape[1])
         out = torch.full((m_e.shape[0], num_segments), neutral, dtype=F32,
                          device=m_e.device)
-        return out.scatter_reduce_(1, seg_ids.long().expand(m_e.shape[0], -1), m_e,
+        return out.scatter_reduce_(1, seg_ids.expand(m_e.shape[0], -1), m_e,
                                    "amin" if op == Q.AGG_MIN else "amax",
                                    include_self=True)
     # m_e is already liveness-gated by minmax_edge, so every edge is "alive"

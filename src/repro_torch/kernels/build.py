@@ -64,17 +64,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def compile_source(name: str, ptxas_verbose: bool = False) -> Tuple[Path, float, str]:
+def compile_source(name: str) -> Tuple[Path, float, str]:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns (path,
     seconds spent compiling, compiler messages)."""
     out = library_path(name)
-    if out.exists() and not ptxas_verbose:
+    if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()),
-           "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     dt = time.perf_counter() - t0

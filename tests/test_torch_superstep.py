@@ -191,8 +191,7 @@ def test_deliver_and_extremum(env, mode, impl):
     t_dst = jnp.asarray(g.traversal["t_dst"])
     want = jax.vmap(lambda c: jax.ops.segment_sum(c, t_dst, num_segments=V,
                                                   indices_are_sorted=True))(jnp.asarray(cnt))
-    got = TSS.deliver(torch.from_numpy(cnt), env["tg"]["t_dst_l"], env["tg"]["arr_ptr"], V,
-                      impl=impl)
+    got = TSS.deliver(torch.from_numpy(cnt), env["tg"]["arr_ptr"], V, impl=impl)
     _eq(got, want, "deliver")
     m = rng.integers(1, 99, size=(NQ, E2)).astype(np.float32)
     m[rng.random((NQ, E2)) < 0.3] = np.inf
@@ -200,8 +199,8 @@ def test_deliver_and_extremum(env, mode, impl):
         mm = np.where(np.isinf(m), -np.inf if op == JQ.AGG_MAX else np.inf, m).astype(np.float32)
         want = jax.vmap(lambda x: red(x, t_dst, num_segments=V, indices_are_sorted=True))(
             jnp.asarray(mm))
-        got = TSS.deliver_extremum(torch.from_numpy(mm), env["tg"]["t_dst_l"],
-                                   env["tg"]["arr_ptr"], V, op, impl=impl)
+        got = TSS.deliver_extremum(torch.from_numpy(mm), env["tg"]["arr_ptr"], V, op,
+                                   impl=impl)
         _eq(got, want, ("extremum", op))
 
 
@@ -240,4 +239,4 @@ def test_fused_hop_deliver(env, mode, extremum):
     # the plain three-step hop gives the same arrivals
     cnt = TSS.apply_edge(torch.from_numpy(sv)[:, env["tg"]["t_src_l"]], tw, tev, mode,
                          env["tb"])
-    _eq(TSS.deliver(cnt, env["tg"]["t_dst_l"], env["tg"]["arr_ptr"], V), want, "unfused")
+    _eq(TSS.deliver(cnt, env["tg"]["arr_ptr"], V), want, "unfused")
