@@ -29,23 +29,57 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                PyTorch library call that computes the same function, where
                one exists.  B4, which no engine path reaches, is held on a
                main-path ETR delivery's edges.
+  7. lm        gemma3-4b at full width (34 layers, 3.88 B parameters in bf16,
+               random weights from SEED, made on the card): first its SMOKE
+               variant on the card against the port on the CPU; then the
+               serve path, 8 prompts of 2048 tokens through ``prefill`` and 31
+               greedy ``decode_step``s (32 tokens a sequence), with the
+               attention counter (B7) set to 0 just before and read just
+               after: it must read 34 x 32.  One traced prefill and decode
+               step.  impl='torch' is held against the run with teacher
+               forcing (it gets the run's tokens): logits within twice the
+               plain bf16 run's own distance from the model in float32, and
+               the same greedy token wherever the top-2 gap exceeds that.
+               The same model in float32 runs through the kernel's float32
+               instantiation and is held, teacher-forced, against
+               impl='torch' in float32 within 1e-3 of each step's max
+               |logit| (summation order is the only difference there).
+               Then B7 against its plain version on the calls of layer 0
+               (local) and layer 5 (global) of the prefill and of the last
+               decode step, in bf16 and cast to float32, timed as in
+               phase 6.
+  8. dlrm      DLRM-RM2 at full width (26 tables of 1,000,000 x 64 float32,
+               random from SEED): SMOKE on the card against the CPU; then
+               ``serve_score`` at batch 512 and 262,144 and
+               ``retrieval_score`` of one query against 1,000,000 candidates
+               (top 128), with the EmbeddingBag counter (B8) set to 0 just
+               before and read just after; one traced run of each;
+               impl='torch' held against them;
+               then B8 against its plain version on the bulk batch's first
+               table, timed as in phase 6.
 
 Exactness: counts are integers in float32, so a kernel equals its plain
 version bit for bit while magnitudes stay below 2^24; entries at or above
 2^24 (where a float32 sum depends on its order) are held to rtol 1e-6 and
-counted.  The last lines are the kernels' JSON line, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.  Details go to
+counted.  B7 is held to one bf16 rounding of its output (atol 1e-3, rtol
+2^-7) in bf16 and to atol = rtol = 2e-5 in float32, the LM as stated in
+phase 7, DLRM to rtol 1e-5 (each stated where it is checked).  The last lines are the kernels'
+JSON line, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.  Details go to
 ``--report`` (default ``build/chip_smoke.json``).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -58,16 +92,27 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 EXACT = float(2 ** 24)
 PERSONS = 100_000             # full size; a cut changes this and is listed in PERF.md
 SEED = 1
 N_BATCH = 8                   # queries per static / bucket batch
-SOURCE = "src/repro_torch/csrc/hop_scatter.cu"
+LM_BATCH, LM_PROMPT, LM_TOKENS = 8, 2048, 32   # 32 greedy tokens: prefill + 31 steps
+LM_CAPTURE = {0: "prefill,local", 5: "prefill,global"}    # layer -> B7 variant
+DLRM_CANDIDATES, DLRM_TOP_K = 1_000_000, 128
+SOURCE = {
+    **dict.fromkeys(("fused_hop_cols", "fused_hop_interval", "scatter_cols",
+                     "scatter_extremum"), "src/repro_torch/csrc/hop_scatter.cu"),
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
+}
 REPLACES = {
     "fused_hop_cols": "src/repro/kernels/hop_scatter/hop_scatter.py:198",
     "fused_hop_interval": "src/repro/kernels/hop_scatter/hop_scatter.py:243",
     "scatter_cols": "src/repro/kernels/hop_scatter/hop_scatter.py:293",
     "scatter_extremum": "src/repro/kernels/hop_scatter/hop_scatter.py:314",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:57",
 }
 REPORT: dict = {}
 
@@ -114,10 +159,42 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def close(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float, what: str) -> float:
+    """Raise unless |got - want| <= atol + rtol |want| everywhere; returns
+    the largest |got - want|."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    g, w = got.double(), want.double()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (g - w).abs()
+    bad = diff > atol + rtol * w.abs()
+    if bool(bad.any()):
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(f"{what}: {int(bad.sum())} entries outside atol {atol} rtol {rtol} "
+                             f"(first: got {g.flatten()[i].item()} want {w.flatten()[i].item()})")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / F32_FLOP_PER_S * 1e3
+    tf = flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of a parameter tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # =========================================================================
@@ -140,14 +217,20 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Compile every source of csrc/ at once (one nvcc each), then load."""
     from repro_torch.kernels import build
 
+    names = sorted(build.SIGNATURES)
     t0 = time.perf_counter()
-    path, nvcc_s, _ = build.compile_source("hop_scatter")
-    build.load("hop_scatter")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build.compile_source, names)))
+    for name in names:
+        build.load(name)
     dt = time.perf_counter() - t0
-    log(f"build: {path.name} nvcc {nvcc_s:.1f}s, build+load {dt:.1f}s")
-    REPORT["build"] = dict(library=path.name, nvcc_s=nvcc_s, total_s=dt)
+    REPORT["build"] = dict(total_s=dt, libraries={
+        n: dict(library=p.name, nvcc_s=s) for n, (p, s, _) in built.items()})
+    log("build: " + ", ".join(f"{p.name} nvcc {s:.1f}s" for p, s, _ in built.values())
+        + f"; all built and loaded in {dt:.1f}s")
 
 
 def minmax_shapes(graph):
@@ -373,15 +456,47 @@ def phase_main(recorder: Recorder):
 
 
 PROFILED = ("Q4", "Q8", "agg-min-2hop")
+_TRACER_READY = False
+
+
+def traced(fn, top: int = 6) -> dict:
+    """One traced run of ``fn`` (torch.profiler): wall and summed kernel
+    time, the idle share (1 - busy / wall, not clamped) and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    global _TRACER_READY
+    if not _TRACER_READY:             # the first session pays the tracer's start-up
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.zeros(1, device="cuda").add_(1)
+        _TRACER_READY = True
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: the aten ops that launched them carry the same time
+    rows = [(ev.self_device_time_total / 1e3, ev.key, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+                kernel_launches=sum(r[2] for r in rows),
+                top=[dict(kernel=k[:90], ms=ms, calls=c) for ms, k, c in rows[:top]])
+
+
+def log_trace(tag: str, rec: dict) -> None:
+    log(f"{tag} wall_ms={rec['wall_ms']:.3f} device_busy_ms={rec['device_busy_ms']:.3f} "
+        f"idle_share={rec['idle_share']:.3f} kernels={rec['kernel_launches']}")
+    for t in rec["top"]:
+        log(f"profile:    {t['ms']:10.3f} ms  x{t['calls']:<4d} {t['kernel']}")
 
 
 def phase_profile(graph, jobs, top: int = 6) -> list:
     """Where a query's device time goes: one traced run of each PROFILED
-    template in each mode (its first plan of the main path), with the idle
-    share (1 - summed kernel time / traced wall time) and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    template in each mode (its first plan of the main path)."""
     out = []
     seen = set()
     for job in jobs:
@@ -390,27 +505,10 @@ def phase_profile(graph, jobs, top: int = 6) -> list:
             continue
         seen.add((name, mode))
         run_job(graph, job)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_job(graph, job)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # kernels only: the aten ops that launched them carry the same time
-        rows = [(ev.self_device_time_total / 1e3, ev.key, ev.count)
-                for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
-        rows.sort(reverse=True)
-        busy_ms = sum(r[0] for r in rows)
         rec = dict(template=name, mode=["static", "bucket", "interval"][mode],
-                   split=split, batch=len(batch), wall_ms=wall_ms, device_busy_ms=busy_ms,
-                   idle_share=1.0 - busy_ms / wall_ms,
-                   top=[dict(kernel=k[:90], ms=ms, calls=c) for ms, k, c in rows[:top]])
+                   split=split, batch=len(batch), **traced(lambda: run_job(graph, job), top))
         out.append(rec)
-        log(f"profile: {name} {rec['mode']} split={split} Q={len(batch)} wall_ms={wall_ms:.3f} "
-            f"device_busy_ms={busy_ms:.3f} idle_share={rec['idle_share']:.3f}")
-        for t in rec["top"]:
-            log(f"profile:    {t['ms']:10.3f} ms  x{t['calls']:<4d} {t['kernel']}")
+        log_trace(f"profile: {name} {rec['mode']} split={split} Q={len(batch)}", rec)
     return out
 
 
@@ -440,7 +538,7 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
         plain_ms = time_ms(plain)
         library_ms = time_ms(library) if library is not None else None
         b_ms, b_by = bound(nbytes, flops)
-        e = dict(name=f"{name}[{variant}]", route="cuda", source=SOURCE,
+        e = dict(name=f"{name}[{variant}]", route="cuda", source=SOURCE[name],
                  replaces=REPLACES[name], launches=launches[name],
                  max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
                  bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
@@ -534,6 +632,426 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
     return entries
 
 
+# =========================================================================
+# model serving: gemma3-4b (B7) and DLRM-RM2 (B8)
+# =========================================================================
+def model_entry(name: str, variant: str, kern, plain, library, nbytes: float,
+                flops: float, flop_rate: float, atol: float, rtol: float,
+                launches: int, library_tol: float | None = None) -> dict:
+    """One kernel line: the kernel against its plain version on the same
+    inputs (atol, rtol), then CUDA-event medians of the kernel, the plain
+    version and the library call beside the bound.  The library call is a
+    yardstick, checked only to compute the same function: atol = rtol =
+    ``library_tol`` (default: the kernel's own)."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = close(got.float(), want.float(), atol, rtol, f"kernel {name}[{variant}]")
+    if library is not None:
+        lt = (atol, rtol) if library_tol is None else (library_tol, library_tol)
+        close(library().float(), want.float(), *lt, f"library for {name}[{variant}]")
+    del got, want
+    ms, plain_ms = time_ms(kern), time_ms(plain)
+    library_ms = time_ms(library) if library is not None else None
+    b_ms, b_by = bound(nbytes, flops, flop_rate)
+    e = dict(name=f"{name}[{variant}]", route="cuda", source=SOURCE[name],
+             replaces=REPLACES[name], launches=launches, max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+             bytes=nbytes, flops=flops, atol=atol, rtol=rtol)
+    log(f"kernels: {e['name']:34s} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
+        f"bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err} launches={launches}")
+    free_memory()
+    return e
+
+
+class AttentionCapture:
+    """Keeps the operands of chosen calls of the attention wrapper: call i
+    of a prefill or decode step is layer i's.  Patches the module attribute
+    the transformer calls through, and restores it on exit."""
+
+    def __init__(self, layers):
+        from repro_torch.kernels.flash_attention import ops as FA
+
+        self.FA, self.layers, self.calls, self.args = FA, set(layers), 0, {}
+
+    def __enter__(self):
+        self.orig = self.FA.flash_attention
+
+        def wrapped(q, k, v, **kw):
+            if self.calls in self.layers:    # the options, less the impl (always 'cuda')
+                self.args[self.calls] = (q, k, v, {o: x for o, x in kw.items() if o != "impl"})
+            self.calls += 1
+            return self.orig(q, k, v, **kw)
+
+        self.FA.flash_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.FA.flash_attention = self.orig
+
+    def check(self, n_layers: int, what: str) -> dict:
+        """The kept operands by layer; raises unless every layer's call went
+        through the patched attribute."""
+        if self.calls != n_layers or set(self.args) != self.layers:
+            raise AssertionError(f"lm: capture of the {what} saw {self.calls} attention calls "
+                                 f"(want {n_layers}) and layers {sorted(self.args)}")
+        return self.args
+
+
+def attention_work(q, k, kw) -> tuple:
+    """(bytes that must move, visible query-key pairs) of one attention call:
+    q and the output once, and the K/V rows some query row sees."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    pos = np.arange(Sq, dtype=np.int64) + kw.get("q_offset", 0)
+    hi = np.minimum(pos + 1, Sk) if kw.get("causal", True) else np.full(Sq, Sk)
+    w = kw.get("window")
+    lo = np.maximum(pos - w + 1, 0) if w is not None else np.zeros(Sq, np.int64)
+    pairs = int(np.maximum(hi - lo, 0).sum()) * B * Hq
+    rows = int(max(hi.max() - lo.min(), 0))
+    nbytes = q.element_size() * (2 * B * Hq * Sq * D + 2 * B * Hkv * rows * D)
+    return nbytes, pairs
+
+
+def attention_library(q, k, v, kw):
+    """``F.scaled_dot_product_attention`` (GQA, the same masks) as a
+    yardstick; the port never calls it."""
+    import torch.nn.functional as F
+
+    Sq, Sk = q.shape[2], k.shape[2]
+    qpos = torch.arange(Sq, device=q.device)[:, None] + kw.get("q_offset", 0)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if kw.get("window") is not None:
+        mask &= kpos > qpos - kw["window"]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def lm_smoke_check() -> dict:
+    """gemma3-4b SMOKE (float32): the port on the card through the kernel
+    against the port on the CPU (plain attention), which the CPU tests hold
+    to the JAX package; atol 2e-5 (matrix products summed in other orders)."""
+    from repro_torch.configs.gemma3_4b import SMOKE
+    from repro_torch.models import transformer as TR
+
+    params = TR.init_params(SMOKE, torch.Generator().manual_seed(SEED), device="cpu")
+    on_card = tree_map(torch.Tensor.cuda, params)
+    toks = torch.randint(0, SMOKE.vocab, (2, 20), generator=torch.Generator().manual_seed(SEED))
+    err = close(TR.forward(SMOKE, on_card, toks.cuda()).cpu(), TR.forward(SMOKE, params, toks),
+                2e-5, 0.0, "lm smoke forward")
+    lc, cc = TR.prefill(SMOKE, on_card, toks.cuda(), 24)
+    lp, cp = TR.prefill(SMOKE, params, toks, 24)
+    err = max(err, close(lc.cpu(), lp, 2e-5, 0.0, "lm smoke prefill"))
+    for n in range(21, 25):
+        tok = lp.argmax(-1)
+        lc, cc = TR.decode_step(SMOKE, on_card, cc, tok.cuda(), n)
+        lp, cp = TR.decode_step(SMOKE, params, cp, tok, n)
+        err = max(err, close(lc.cpu(), lp, 2e-5, 0.0, f"lm smoke decode {n}"))
+    log(f"lm: SMOKE on the card equals the CPU port: forward, prefill, 4 decode "
+        f"steps, max_abs_err {err:.3g} (atol 2e-5)")
+    return dict(max_abs_err=err)
+
+
+def phase_lm() -> tuple:
+    """Returns (report dict, kernel lines of B7)."""
+    from repro_torch.configs.gemma3_4b import CONFIG
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as TR
+
+    info = dict(smoke=lm_smoke_check())
+    cfg, dev = CONFIG, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = TR.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [params["embed"], params["ln_f"],
+                                        *params["layers"].values()])
+    if n_params != cfg.param_count():
+        raise AssertionError(f"lm: {n_params} parameters, config says {cfg.param_count()}")
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    max_len = LM_PROMPT + LM_TOKENS
+    info.update(config=cfg.name, params=n_params, batch=LM_BATCH, prompt=LM_PROMPT,
+                new_tokens=LM_TOKENS, max_len=max_len, init_s=time.perf_counter() - t0)
+    logits = torch.empty((LM_TOKENS, LM_BATCH, cfg.vocab), dtype=torch.float32, device=dev)
+    tokens = torch.empty((LM_TOKENS, LM_BATCH), dtype=torch.long, device=dev)
+    # warm-up at full size: cuBLAS handles, the kernel's first launch, and the
+    # allocator's blocks (kept cached, so the timed run pays no cudaMalloc)
+    lw, cw = TR.prefill(cfg, params, prompts, max_len)
+    TR.decode_step(cfg, params, cw, lw.argmax(-1), LM_PROMPT + 1)
+    del lw, cw
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    FA.reset_launches()           # the count is 0 just before the serve path
+    t0 = time.perf_counter()
+    out, cache = TR.prefill(cfg, params, prompts, max_len)
+    logits[0].copy_(out)
+    tokens[0] = out.argmax(-1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(1, LM_TOKENS):
+        out, cache = TR.decode_step(cfg, params, cache, tokens[i - 1], LM_PROMPT + i)
+        logits[i].copy_(out)
+        tokens[i] = out.argmax(-1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = FA.LAUNCHES["flash_attention"]   # read just after
+    peak = torch.cuda.max_memory_allocated()
+    info.update(prefill_ms=(t1 - t0) * 1e3, decode_ms_per_token=(t2 - t1) * 1e3 / (LM_TOKENS - 1),
+                resident_bytes=resident, peak_bytes=peak, launches=launches,
+                prefill_tokens_per_s=LM_BATCH * LM_PROMPT / (t1 - t0),
+                decode_tokens_per_s=LM_BATCH * (LM_TOKENS - 1) / (t2 - t1))
+    log(f"lm: gemma3-4b {n_params / 1e9:.3f} B params bf16, {LM_BATCH} x {LM_PROMPT}-token "
+        f"prompts, {LM_TOKENS} greedy tokens: prefill {info['prefill_ms']:.1f} ms, decode "
+        f"{info['decode_ms_per_token']:.2f} ms/token, peak_GiB={peak / 2**30:.3f} "
+        f"resident_GiB={resident / 2**30:.3f}, B7 launches {launches}")
+    want = cfg.n_layers * LM_TOKENS
+    if launches != want:
+        raise AssertionError(f"lm: B7 launched {launches} times on the serve path, want {want}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("lm: non-finite logits")
+
+    info["profile"] = dict(
+        prefill=traced(lambda: TR.prefill(cfg, params, prompts, max_len)),
+        decode_step=traced(lambda: TR.decode_step(cfg, params, cache, tokens[LM_TOKENS - 2],
+                                                  LM_PROMPT + LM_TOKENS - 1)))
+    for k, rec in info["profile"].items():
+        log_trace(f"profile: lm {k}", rec)
+
+    # impl='torch' (bf16) and the same model in float32 (impl='torch', the
+    # bf16 weights cast up), both with teacher forcing: they get this run's
+    # tokens.  The kernels differ from the plain version only in the
+    # attention's summation order, which in bf16 moves the logits as much as
+    # rounding itself does; the bound per step is twice the plain bf16 run's
+    # own distance from float32 arithmetic (measured, and stated in PERF.md).
+    #
+    # The same float32 model also runs with impl='cuda' (the kernel's float32
+    # instantiation), teacher-forced, against impl='torch' in float32: there
+    # summation order is the only difference, so the bound is 1e-3 of the
+    # step's max |logit|, and the greedy tokens must agree wherever the
+    # float32 top-1/top-2 gap exceeds it.
+    plain = dataclasses.replace(cfg, impl="torch")
+    f32 = dataclasses.replace(cfg, impl="torch", dtype=torch.float32)
+    f32_cuda = dataclasses.replace(cfg, impl="cuda", dtype=torch.float32)
+    params32 = tree_map(torch.Tensor.float, params)
+    steps, near_ties, near_ties32 = [], 0, 0
+    ref_cache = f32_cache = c32_cache = None
+    launches32 = FA.LAUNCHES["flash_attention"]
+    for i in range(LM_TOKENS):
+        if i == 0:
+            ref, ref_cache = TR.prefill(plain, params, prompts, max_len)
+            r32, f32_cache = TR.prefill(f32, params32, prompts, max_len)
+            c32, c32_cache = TR.prefill(f32_cuda, params32, prompts, max_len)
+        else:
+            n = LM_PROMPT + i
+            ref, ref_cache = TR.decode_step(plain, params, ref_cache, tokens[i - 1], n)
+            r32, f32_cache = TR.decode_step(f32, params32, f32_cache, tokens[i - 1], n)
+            c32, c32_cache = TR.decode_step(f32_cuda, params32, c32_cache, tokens[i - 1], n)
+        top = float(ref.abs().max())
+        own = float((ref - r32).abs().max())         # the plain run's bf16 error
+        err = float((logits[i] - ref).abs().max())
+        top32 = float(r32.abs().max())
+        err32 = float((c32 - r32).abs().max())
+        st = dict(step=i, err=err, bound=2 * own, plain_vs_f32=own, max_logit=top,
+                  cuda_vs_f32=float((logits[i] - r32).abs().max()),
+                  f32_err=err32, f32_bound=1e-3 * top32)
+        steps.append(st)
+        if not bool(torch.isfinite(c32).all()) or err32 > 1e-3 * top32:
+            raise AssertionError(f"lm: step {i}: float32 impl cuda vs torch max |logit diff| "
+                                 f"{err32} > 1e-3 x {top32}")
+        gap32 = r32.topk(2, dim=-1).values
+        decided32 = (gap32[:, 0] - gap32[:, 1]) > 1e-3 * top32
+        if bool((decided32 & (c32.argmax(-1) != r32.argmax(-1))).any()):
+            raise AssertionError(f"lm: step {i}: a float32 greedy token differs where the "
+                                 f"top-1/top-2 gap exceeds {1e-3 * top32}")
+        near_ties32 += int((~decided32).sum())
+        if not 0 < own < 0.1 * top:
+            raise AssertionError(f"lm: step {i}: plain bf16 vs float32 {own} is no rounding error")
+        if err > 2 * own:
+            raise AssertionError(f"lm: step {i}: max |logit diff| {err} > 2 x {own}")
+        top2 = ref.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * own
+        if bool((decided & (tokens[i] != ref.argmax(-1))).any()):
+            raise AssertionError(f"lm: step {i}: a greedy token differs where the plain "
+                                 f"run's top-1/top-2 gap exceeds {2 * own}")
+        near_ties += int((~decided).sum())
+    launches32 = FA.LAUNCHES["flash_attention"] - launches32
+    del ref_cache, f32_cache, c32_cache, ref, r32, c32, params32
+    if launches32 != cfg.n_layers * LM_TOKENS:
+        raise AssertionError(f"lm: the float32 run launched B7 {launches32} times, "
+                             f"want {cfg.n_layers * LM_TOKENS}")
+    worst = max(steps, key=lambda st: st["err"] / st["bound"])
+    worst32 = max(steps, key=lambda st: st["f32_err"] / st["f32_bound"])
+    info.update(teacher_forced=steps, tokens_within_bound_of_a_tie=near_ties,
+                max_abs_logit_err=max(st["err"] for st in steps),
+                max_err_over_max_logit=max(st["err"] / st["max_logit"] for st in steps),
+                max_err_over_bound=worst["err"] / worst["bound"],
+                f32_max_abs_logit_err=max(st["f32_err"] for st in steps),
+                f32_max_err_over_max_logit=worst32["f32_err"] / worst32["f32_bound"] * 1e-3,
+                f32_tokens_within_bound_of_a_tie=near_ties32, f32_launches=launches32)
+    log(f"lm: impl='torch' with teacher forcing: max |logit diff| "
+        f"{info['max_abs_logit_err']:.4g} ({info['max_err_over_max_logit']:.4g} of the step's "
+        f"max |logit|); worst step {worst['step']}: {worst['err']:.4g} against bound "
+        f"{worst['bound']:.4g} (2 x plain bf16 vs float32; cuda vs float32 "
+        f"{worst['cuda_vs_f32']:.4g}); every greedy token agrees where the top-1/top-2 gap "
+        f"exceeds the bound; {near_ties} of {LM_TOKENS * LM_BATCH} tokens fall within it")
+    log(f"lm: float32, impl='cuda' (B7 float32, {launches32} launches) vs impl='torch' with "
+        f"teacher forcing: max |logit diff| {info['f32_max_abs_logit_err']:.4g}, at most "
+        f"{info['f32_max_err_over_max_logit']:.4g} of the step's max |logit| (bound 1e-3); "
+        f"greedy tokens agree where the gap exceeds it; {near_ties32} of "
+        f"{LM_TOKENS * LM_BATCH} tokens fall within it")
+    free_memory()
+
+    # B7 on the main path's calls: the prefill's layers 0 and 5, the last decode step's
+    entries = []
+    with AttentionCapture(LM_CAPTURE) as cap:
+        TR.prefill(cfg, params, prompts, max_len)
+    args = cap.check(cfg.n_layers, "prefill")
+    calls = {LM_CAPTURE[i]: args[i] for i in LM_CAPTURE}
+    with AttentionCapture(LM_CAPTURE) as cap:        # idempotent: rewrites row 2078
+        TR.decode_step(cfg, params, cache, tokens[LM_TOKENS - 2], LM_PROMPT + LM_TOKENS - 1)
+    args = cap.check(cfg.n_layers, "decode step")
+    calls.update({LM_CAPTURE[i].replace("prefill", "decode"): args[i] for i in LM_CAPTURE})
+    del params
+    free_memory()
+    # bf16: kernel and plain version both sum in float32 and round the output
+    # once, so they may differ by one bf16 rounding: atol 1e-3, rtol 2^-7.
+    # float32: the main path's operands cast up, through the kernel's float32
+    # instantiation, at the float32 tolerance 2e-5.  The library (SDPA) rounds
+    # p to bf16 before p @ v, so it is checked at 2e-2 (bf16) and 1e-4 (f32).
+    for dtype, tag, tol, lib_tol, rate in (
+            (torch.bfloat16, "", (1e-3, 2.0 ** -7), 2e-2, BF16_FLOP_PER_S),
+            (torch.float32, ",f32", (2e-5, 2e-5), 1e-4, F32_FLOP_PER_S)):
+        for variant, ops in calls.items():
+            q, k, v = (t.to(dtype) for t in ops[:3])
+            kw = ops[3]
+            nbytes, pairs = attention_work(q, k, kw)
+            D = q.shape[-1]
+            entries.append(model_entry(
+                "flash_attention", variant + tag, lambda: FA.flash_attention(q, k, v, **kw),
+                lambda: FA.attention_plain(q, k, v, **kw), attention_library(q, k, v, kw),
+                nbytes, 4.0 * D * pairs, rate, *tol, launches, library_tol=lib_tol))
+            del q, k, v
+    del calls, cache
+    free_memory()
+    return info, entries
+
+
+def dlrm_smoke_check() -> dict:
+    """DLRM-RM2 SMOKE: the port on the card through the kernel against the
+    port on the CPU; rtol 1e-5 on the scores."""
+    from repro_torch.configs.dlrm_rm2 import SMOKE
+    from repro_torch.models import dlrm as DM
+
+    gen = torch.Generator().manual_seed(SEED)
+    params = DM.init_params(SMOKE, gen, device="cpu")
+    on_card = tree_map(torch.Tensor.cuda, params)
+    dense = torch.randn(64, SMOKE.n_dense, generator=gen)
+    sparse = torch.randint(-1, 512, (64, SMOKE.n_sparse, 3), generator=gen, dtype=torch.int32)
+    sm = dataclasses.replace(SMOKE, multi_hot=3)
+    err = close(DM.serve_score(sm, on_card, dense.cuda(), sparse.cuda()).cpu(),
+                DM.serve_score(sm, params, dense, sparse), 0.0, 1e-5, "dlrm smoke serve_score")
+    log(f"dlrm: SMOKE (3 lookups a field, padding) on the card equals the CPU port, "
+        f"max_abs_err {err:.3g} (rtol 1e-5)")
+    return dict(max_abs_err=err)
+
+
+def phase_dlrm() -> tuple:
+    """Returns (report dict, kernel lines of B8)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.dlrm_rm2 import CONFIG, SHAPES
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.models import dlrm as DM
+
+    info = dict(smoke=dlrm_smoke_check())
+    cfg, dev = CONFIG, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = DM.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    info.update(config=cfg.name, params=cfg.param_count(), init_s=time.perf_counter() - t0,
+                table_bytes=sum(t.numel() * t.element_size() for t in params["tables"]))
+
+    def batch(n):
+        return (torch.randn(n, cfg.n_dense, generator=gen, device=dev),
+                torch.randint(0, cfg.vocabs()[0], (n, cfg.n_sparse, cfg.multi_hot),
+                              generator=gen, device=dev, dtype=torch.int32))
+
+    cand = torch.randn(DLRM_CANDIDATES, cfg.embed_dim, generator=gen, device=dev)
+    calls = {name: batch(SHAPES[name]["batch"]) for name in ("serve_p99", "serve_bulk")}
+    calls["retrieval_cand"] = batch(1)
+
+    def run(name, c=cfg):
+        if name == "retrieval_cand":
+            return DM.retrieval_score(c, params, *calls[name], cand, top_k=DLRM_TOP_K)
+        return DM.serve_score(c, params, *calls[name])
+
+    for name in calls:
+        run(name)                 # warm-up; the allocator keeps its blocks
+    gc.collect()
+    rows = {}
+    EB.reset_launches()           # the count is 0 just before the serve path
+    outs = {}
+    for name in calls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        outs[name] = run(name)
+        ev1.record()
+        torch.cuda.synchronize()
+        rows[name] = dict(batch=calls[name][0].shape[0], ms=ev0.elapsed_time(ev1),
+                          peak_bytes=torch.cuda.max_memory_allocated(), resident_bytes=base)
+    launches = EB.LAUNCHES["embedding_bag"]       # read just after
+    want = cfg.n_sparse * len(calls)
+    if launches != want:
+        raise AssertionError(f"dlrm: B8 launched {launches} times on the serve path, want {want}")
+    for name, row in rows.items():
+        row["median_ms_of_10"] = time_ms(lambda: run(name))
+        log(f"dlrm: {name:14s} batch={row['batch']:7d} ms={row['ms']:.3f} "
+            f"median_ms={row['median_ms_of_10']:.3f} peak_GiB={row['peak_bytes'] / 2**30:.3f} "
+            f"resident_GiB={row['resident_bytes'] / 2**30:.3f}")
+    info["profile"] = {name: traced(lambda: run(name)) for name in calls}
+    for name, rec in info["profile"].items():
+        log_trace(f"profile: dlrm {name}", rec)
+    # impl='torch' on the same inputs: rtol 1e-5 on scores, the same top-k ids
+    plain = dataclasses.replace(cfg, impl="torch")
+    errs = {}
+    for name, got in outs.items():
+        ref = run(name, plain)
+        if name == "retrieval_cand":
+            if not torch.equal(got.indices, ref.indices):
+                raise AssertionError("dlrm: retrieval top-k ids differ between impls")
+            got, ref = got.values, ref.values
+        errs[name] = close(got, ref, 0.0, 1e-5, f"dlrm {name}")
+        rows[name]["max_abs_err_vs_torch"] = errs[name]
+    log(f"dlrm: impl='torch' agrees (rtol 1e-5; retrieval ids equal): max_abs_err {errs}; "
+        f"B8 launches {launches}")
+    info.update(shapes=rows, launches=launches)
+    del outs, cand
+
+    # B8 on the bulk batch's first table, as forward calls it
+    table = params["tables"][0]
+    idx = calls["serve_bulk"][1][:, 0, :].contiguous()
+    n_bags = idx.shape[0]
+    uniq = int(torch.unique(idx[idx >= 0]).numel())
+    nbytes = 4.0 * (idx.numel() + uniq * cfg.embed_dim + n_bags * cfg.embed_dim)
+    idx_long = idx.long()
+    entry = model_entry("embedding_bag", f"sum,B={n_bags}",
+                        lambda: EB.embedding_bag(table, idx, "sum"),
+                        lambda: EB.embedding_bag_plain(table, idx, "sum"),
+                        lambda: F.embedding_bag(idx_long, table, mode="sum"),
+                        nbytes, float(idx.numel() * cfg.embed_dim), F32_FLOP_PER_S,
+                        2e-5, 2e-5, launches)
+    del params, calls
+    free_memory()
+    return info, [entry]
+
+
 def main(argv=None) -> int:
     warnings.filterwarnings("ignore", message="Sparse")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -551,6 +1069,11 @@ def main(argv=None) -> int:
     REPORT["profile"] = phase_profile(graph, jobs)
     rec.capture(lambda j: run_job(graph, jobs[j]))
     kernels = phase_kernels(rec, REPORT["main"]["launches"])
+    del rec, graph, jobs
+    free_memory()
+    REPORT["lm"], lm_kernels = phase_lm()
+    REPORT["dlrm"], dlrm_kernels = phase_dlrm()
+    kernels += lm_kernels + dlrm_kernels
     REPORT["kernels"] = kernels
     REPORT["wall_s"] = time.perf_counter() - t_start
     report = Path(args.report)

@@ -1,23 +1,30 @@
 """Carry the reference package's data into the port without importing it.
 
-Both functions read plain attributes and dictionaries (duck typing), so a
-test can hand the port exactly the graph and queries the reference package
-runs on:
+Every function reads plain attributes, dictionaries and numpy arrays (duck
+typing), so a test can hand the port exactly the graph, queries and model
+parameters the reference package runs on:
 
   graph_from_arrays(g)   a ``TemporalGraph`` from any object with the
                          reference graph's field names
   query_from_dict(d)     a ``PathQuery`` from ``dataclasses.asdict`` of a
                          reference query
+  transformer_params_from_arrays(cfg, tree)
+  dlrm_params_from_arrays(cfg, tree)
+                         the port's model parameters from the reference's
+                         parameter tree as numpy arrays (same layout, so no
+                         transpose; cast to ``cfg.dtype``)
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional, Union
 
 import numpy as np
+import torch
 
 from .core import query as Q
 from .core.graph import PropColumn, TemporalGraph
 from .graphdata.loader import GraphBuilder
+from .kernels.common import resolve_device
 
 
 def _column(c) -> PropColumn:
@@ -75,3 +82,33 @@ def query_from_dict(d: Mapping) -> Q.PathQuery:
                               tuple(_clause(c) for c in p["clauses"]), int(p["etr_op"]))
               for p in d["e_preds"])
     return Q.PathQuery(v, e, int(d["agg_op"]), int(d["agg_key"]))
+
+
+def _tensor(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    # via float32: numpy has no bfloat16 that torch reads, and bf16 -> f32 -> bf16 is exact
+    return torch.from_numpy(np.array(a, np.float32)).to(device=dev, dtype=dtype)
+
+
+def transformer_params_from_arrays(cfg, tree: Mapping,
+                                   device: Optional[Union[str, torch.device]] = None):
+    """The port's transformer parameters (``models/transformer.py``) from the
+    reference's ``init_params`` tree (``embed``, ``ln_f``, ``layers``,
+    optional ``head``) as numpy arrays."""
+    dev = resolve_device(device)
+    out = dict(embed=_tensor(tree["embed"], cfg.dtype, dev),
+               ln_f=_tensor(tree["ln_f"], cfg.dtype, dev),
+               layers={k: _tensor(v, cfg.dtype, dev) for k, v in tree["layers"].items()})
+    if "head" in tree:
+        out["head"] = _tensor(tree["head"], cfg.dtype, dev)
+    return out
+
+
+def dlrm_params_from_arrays(cfg, tree: Mapping,
+                            device: Optional[Union[str, torch.device]] = None):
+    """The port's DLRM parameters (``models/dlrm.py``) from the reference's
+    ``init_params`` tree (``tables``, ``bot``, ``top``) as numpy arrays."""
+    dev = resolve_device(device)
+    mlp = lambda layers: [dict(w=_tensor(ly["w"], cfg.dtype, dev), b=_tensor(ly["b"], cfg.dtype, dev))
+                          for ly in layers]
+    return dict(tables=[_tensor(t, cfg.dtype, dev) for t in tree["tables"]],
+                bot=mlp(tree["bot"]), top=mlp(tree["top"]))

@@ -1,14 +1,20 @@
-"""The port's CUDA hop kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Every test needs an NVIDIA Hopper card (capability 9.0) and nvcc, and
 skips elsewhere; run them there with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels.py``.
 
-Inputs are small non-negative integers in float32, so every sum is exact and
-the comparison is ``torch.equal`` whatever order the kernel sums in."""
+Hop kernels: inputs are small non-negative integers in float32, so every sum
+is exact and the comparison is ``torch.equal`` whatever order the kernel sums
+in.  Attention: atol = rtol = 2e-5 in float32 (the tolerance of
+``tests/test_kernels.py``'s sweep); in bf16 atol 1e-3 and rtol 2^-7, one
+bf16 rounding of the output, tighter than that sweep's 2e-2, since kernel and
+plain version both sum in float32.  EmbeddingBag: atol 1e-5."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import embedding_bag as EB
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import hop_scatter as HK
 
 pytestmark = pytest.mark.gpu
@@ -122,3 +128,133 @@ def test_wrappers_refuse_bad_operands(dev):
         HK.fused_hop_cols(state, src, w.double(), ptr)         # wrong dtype
     with pytest.raises(ValueError):
         HK.fused_hop_cols(state, src, w[:, :-1], ptr)          # wrong shape
+
+
+# =========================================================================
+# B7 attention
+# =========================================================================
+def _normal(seed, shape, dev, dtype):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+
+
+def _tol(dtype):
+    if dtype == torch.float32:
+        return dict(atol=2e-5, rtol=2e-5)
+    # both sum in float32 and round the output to bf16 once: one rounding apart
+    return dict(atol=1e-3, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [
+    (1, 4, 2, 128, 64),
+    (2, 8, 8, 256, 64),
+    (1, 8, 1, 128, 128),   # MQA
+    (2, 2, 2, 192, 32),    # a sequence that is no multiple of the tiles
+    (2, 8, 4, 200, 256),   # gemma3-4b's heads
+    (2, 4, 2, 20, 16),     # gemma3-4b SMOKE's heads
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64), (False, None), (False, 64)])
+def test_flash_attention(dev, B, Hq, Hkv, S, D, dtype, causal, window):
+    q = _normal(1, (B, Hq, S, D), dev, dtype)
+    k = _normal(2, (B, Hkv, S, D), dev, dtype)
+    v = _normal(3, (B, Hkv, S, D), dev, dtype)
+    n0 = FA.LAUNCHES["flash_attention"]
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == n0 + 1
+    want = FA.attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [None, 1024])
+@pytest.mark.parametrize("cache_len", [1, 63, 199, 1025, 2079])
+def test_decode_attention(dev, dtype, window, cache_len):
+    """One token against a [B, Hkv, 2080, 256] cache whose rows past
+    cache_len hold values the kernel must not see."""
+    q = _normal(4, (2, 8, 1, 256), dev, dtype)
+    kc = _normal(5, (2, 4, 2080, 256), dev, dtype)
+    vc = _normal(6, (2, 4, 2080, 256), dev, dtype)
+    out = FA.decode_attention(q, kc, vc, cache_len, window=window)
+    torch.cuda.synchronize()
+    want = FA.attention_plain(q, kc[:, :, :cache_len], vc[:, :, :cache_len], causal=True,
+                              window=window, q_offset=cache_len - 1)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+
+
+def test_flash_attention_takes_strided_views(dev):
+    """q, k, v as the transformer hands them over: [B, S, H, D] projections
+    seen as [B, H, S, D], and a layer of a [L, B, H, S, D] cache."""
+    B, S, Hq, Hkv, D = 2, 77, 8, 4, 256
+    q = _normal(7, (B, S, Hq, D), dev, torch.bfloat16).transpose(1, 2)
+    cache = _normal(8, (3, B, Hkv, 96, D), dev, torch.bfloat16)
+    k, v = cache[1, :, :, :S], cache[2, :, :, :S]
+    out = FA.flash_attention(q, k, v, causal=True, window=16)
+    torch.cuda.synchronize()
+    want = FA.attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), window=16)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(torch.bfloat16))
+
+
+def test_flash_attention_rows_that_see_no_key_are_zero(dev):
+    q = _normal(9, (1, 2, 40, 64), dev, torch.float32)
+    k = _normal(10, (1, 1, 100, 64), dev, torch.float32)
+    out = FA.flash_attention(q, k, k, causal=True, q_offset=-20)
+    torch.cuda.synchronize()
+    want = FA.attention_plain(q, k, k, causal=True, q_offset=-20)
+    assert torch.equal(out[:, :, :20], torch.zeros_like(out[:, :, :20]))
+    torch.testing.assert_close(out, want, **_tol(torch.float32))
+
+
+def test_flash_attention_refuses_bad_operands(dev):
+    q = torch.zeros(1, 2, 8, 64, device=dev)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q[..., :48], q[..., :48], q[..., :48])   # head width not built
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, q.bfloat16(), q)                      # mixed dtypes
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, q.cpu(), q)                            # mixed devices
+    odd = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, odd, q)                                # unaligned base
+
+
+# =========================================================================
+# B8 EmbeddingBag
+# =========================================================================
+@pytest.mark.parametrize("V,D,Bb,L", [(1000, 32, 64, 8), (257, 16, 33, 3), (4096, 64, 16, 1),
+                                      (1_000_000, 64, 5000, 1), (50, 100, 40, 5)])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag(dev, V, D, Bb, L, mode):
+    rng = np.random.default_rng(V + Bb)
+    table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32)).to(dev)
+    idx = rng.integers(-1, V, size=(Bb, L)).astype(np.int32)
+    idx[0] = -1                                   # a bag with no valid index
+    idx_t = torch.from_numpy(idx).to(dev)
+    n0 = EB.LAUNCHES["embedding_bag"]
+    out = EB.embedding_bag(table, idx_t, mode)
+    torch.cuda.synchronize()
+    assert EB.LAUNCHES["embedding_bag"] == n0 + 1
+    want = EB.embedding_bag_plain(table, idx_t, mode)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+def test_embedding_bag_skips_indices_past_the_table(dev):
+    table = torch.arange(12, dtype=torch.float32, device=dev).view(3, 4)
+    idx = torch.tensor([[0, 3, -1], [2, 2, 1 << 30]], dtype=torch.int32, device=dev)
+    out = EB.embedding_bag(table, idx, "mean")
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.stack([table[0], table[2]]))
+
+
+def test_embedding_bag_refuses_bad_operands(dev):
+    table = torch.ones(10, 64, device=dev)
+    idx = torch.zeros(4, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        EB.embedding_bag(table, idx.long())
+    with pytest.raises(ValueError):
+        EB.embedding_bag(table.double(), idx)
+    with pytest.raises(ValueError):
+        EB.embedding_bag(table, idx.cpu())
