@@ -57,13 +57,35 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                impl='torch' held against them;
                then B8 against its plain version on the bulk batch's first
                table, timed as in phase 6.
+  9. gnn       GNN inference on the minibatch_lg deployment (configs/common.py
+               GNN_SHAPES): a synthetic graph of 232,965 nodes and 114,615,892
+               edges made on the card from SEED, its CSR and a 232,965 x 602
+               float32 feature table resident there; for each of PNA, EGNN,
+               MeshGraphNet and SchNet at CONFIG width (random weights from
+               SEED), 8 requests of 1,024 seeds: sample_union_graph with
+               fanout (15, 10), feature gather, the model's *_apply, the
+               predictions at the seeds.  The segment-sum counter (B5) is set
+               to 0 just before the requests and read just after: it must
+               equal the count worked out from models/gnn.py.  Median request
+               latency by CUDA events, split into sample, gather and forward;
+               peak beside resident memory; one traced request.
+               impl='torch' is held against impl='cuda' on the same sampled
+               batches within 1e-4 of each output's max |value|.  Then B5
+               against its plain version on captured operands of the
+               requests, timed as in phase 6.
+
+Phase 6 also holds TimeWarp (B6), which no path of either package reaches,
+equal to its plain version through its entry point, on every vertex's
+lifespan of the main graph, its 16 bucket edges and the per-vertex bucket
+state of a main-path aggregate query.
 
 Exactness: counts are integers in float32, so a kernel equals its plain
 version bit for bit while magnitudes stay below 2^24; entries at or above
 2^24 (where a float32 sum depends on its order) are held to rtol 1e-6 and
 counted.  B7 is held to one bf16 rounding of its output (atol 1e-3, rtol
 2^-7) in bf16 and to atol = rtol = 2e-5 in float32, the LM as stated in
-phase 7, DLRM to rtol 1e-5 (each stated where it is checked).  The last lines are the kernels'
+phase 7, DLRM to rtol 1e-5, B5 to atol = rtol = 1e-4 (the reference's
+sweep), B6 exactly (each stated where it is checked).  The last lines are the kernels'
 JSON line, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  Details go to
 ``--report`` (default ``build/chip_smoke.json``).
@@ -100,11 +122,18 @@ N_BATCH = 8                   # queries per static / bucket batch
 LM_BATCH, LM_PROMPT, LM_TOKENS = 8, 2048, 32   # 32 greedy tokens: prefill + 31 steps
 LM_CAPTURE = {0: "prefill,local", 5: "prefill,global"}    # layer -> B7 variant
 DLRM_CANDIDATES, DLRM_TOP_K = 1_000_000, 128
+GNN_SHAPE, GNN_REQUESTS = "minibatch_lg", 8
+GNN_ARCHS = ("pna", "egnn", "meshgraphnet", "schnet")
+GNN_TOL = 1e-4                # of max |output|: summation order is the only difference
+GNN_B5_LINES = {"pna": (75,), "egnn": (3, 1), "meshgraphnet": (128,)}   # arch -> C timed
+WARP_BUCKETS = 16
 SOURCE = {
     **dict.fromkeys(("fused_hop_cols", "fused_hop_interval", "scatter_cols",
                      "scatter_extremum"), "src/repro_torch/csrc/hop_scatter.cu"),
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
+    "bucket_scatter": "src/repro_torch/csrc/bucket_scatter.cu",
+    "interval_warp": "src/repro_torch/csrc/interval_warp.cu",
 }
 REPLACES = {
     "fused_hop_cols": "src/repro/kernels/hop_scatter/hop_scatter.py:198",
@@ -113,6 +142,8 @@ REPLACES = {
     "scatter_extremum": "src/repro/kernels/hop_scatter/hop_scatter.py:314",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:72",
     "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:57",
+    "bucket_scatter": "src/repro/kernels/bucket_scatter/bucket_scatter.py:37",
+    "interval_warp": "src/repro/kernels/interval_warp/interval_warp.py:27",
 }
 REPORT: dict = {}
 
@@ -176,6 +207,15 @@ def close(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float, what:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def identical(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """Raise unless equal: the same values (torch.equal) off NaN, NaN in the
+    same places and the same signs of zero."""
+    ng, nw = torch.isnan(got), torch.isnan(want)
+    if not (got.shape == want.shape and torch.equal(ng, nw) and torch.equal(got[~ng], want[~nw])
+            and torch.equal(torch.signbit(got[~ng]), torch.signbit(want[~nw]))):
+        raise AssertionError(f"{what}: kernel and plain version differ")
+
+
 def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / flop_rate * 1e3
@@ -189,6 +229,15 @@ def tree_map(fn, tree):
     if isinstance(tree, list):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def leaves(tree) -> list:
+    """Every tensor of a parameter tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in leaves(v)]
+    return [tree]
 
 
 def free_memory() -> None:
@@ -632,6 +681,45 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
     return entries
 
 
+def warp_entry(graph, jobs) -> dict:
+    """B6 through its entry point (no path of either package reaches it) on
+    the main graph's operands: every vertex's lifespan, the graph's bucket
+    edges and the per-vertex bucket state of a main-path query (the first
+    query of the first bucket-mode job with an aggregate, whose output keeps
+    that state).  Held equal to its plain version."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import query as Q
+    from repro_torch.kernels import interval_warp as IW
+
+    dev = torch.device("cuda")
+    job = next(j for j in jobs if j[1] == E.MODE_BUCKET and j[3][0].agg_op != Q.AGG_NONE)
+    out = run_job(graph, job)
+    counts = out.per_vertex[0].contiguous()
+    del out
+    V = graph.n_vertices
+    ivl = torch.from_numpy(graph.v_life).to(dev)
+    bedges = E.bucket_edges_for(graph, WARP_BUCKETS, dev).to(torch.int32)
+    if tuple(counts.shape) != (V, WARP_BUCKETS):
+        raise AssertionError(f"kernels: bucket state {tuple(counts.shape)} != {(V, WARP_BUCKETS)}")
+    IW.reset_launches()           # its entry point, called once
+    got = IW.interval_warp(counts, ivl, bedges)
+    torch.cuda.synchronize()
+    launches = IW.LAUNCHES["interval_warp"]
+    identical(got, IW.interval_warp_plain(counts, ivl, bedges), "kernel interval_warp")
+    kept = int((got != 0).sum())
+    del got
+    n = counts.numel()
+    e = model_entry("interval_warp", f"B={WARP_BUCKETS},V={V}",
+                    lambda: IW.interval_warp(counts, ivl, bedges),
+                    lambda: IW.interval_warp_plain(counts, ivl, bedges), None,
+                    4.0 * (2 * n + 2 * V + WARP_BUCKETS + 1), 3.0 * n, F32_FLOP_PER_S,
+                    0.0, 0.0, launches)
+    e.update(template=job[0], nonzero_in=int((counts != 0).sum()), nonzero_out=kept)
+    log(f"kernels: interval_warp on {job[0]}'s bucket state: {e['nonzero_in']} non-zero "
+        f"counts in, {kept} out; equal to the plain version (NaN and signs of zero included)")
+    return e
+
+
 # =========================================================================
 # model serving: gemma3-4b (B7) and DLRM-RM2 (B8)
 # =========================================================================
@@ -1052,6 +1140,223 @@ def phase_dlrm() -> tuple:
     return info, [entry]
 
 
+# =========================================================================
+# GNN inference: PNA, EGNN, MeshGraphNet, SchNet over a sampled graph (B5)
+# =========================================================================
+def gnn_modules():
+    from repro_torch.configs import egnn, meshgraphnet, pna, schnet
+    from repro_torch.models import gnn as G
+
+    configs = {"pna": pna, "egnn": egnn, "meshgraphnet": meshgraphnet, "schnet": schnet}
+    apply = {"pna": G.pna_apply, "egnn": G.egnn_apply, "meshgraphnet": G.mgn_apply,
+             "schnet": G.schnet_apply}
+    return G, configs, apply
+
+
+def b5_per_forward(arch: str, cfg) -> int:
+    """B5 launches of one forward, from models/gnn.py: PNA's degree, then per
+    layer its mean and the std's mean of squares (a sum and a count each);
+    EGNN per layer the coordinate mean (sum and count) and the message sum;
+    MeshGraphNet one sum per layer; SchNet one per interaction."""
+    if arch == "schnet":
+        return cfg.n_interactions
+    return {"pna": 1 + 4 * cfg.n_layers, "egnn": 3 * cfg.n_layers,
+            "meshgraphnet": cfg.n_layers}[arch]
+
+
+def gnn_graph(info: dict, gen: torch.Generator):
+    """The deployment's graph on the card: ``n_nodes`` nodes and ``n_edges``
+    directed edges, sources drawn in proportion to lognormal(0, 1) node
+    weights (a heavy-tailed degree), destinations uniform; the CSR built by
+    ``CSR.from_edge_index`` on the card; a float32 feature table
+    ``[n_nodes, d_feat]`` of Normal(0, 1)."""
+    from repro_torch.graphdata.sampler import CSR
+
+    dev = gen.device
+    N, E = info["n_nodes"], info["n_edges"]
+    w = torch.exp(torch.randn(N, generator=gen, device=dev, dtype=torch.float64))
+    cdf = torch.cumsum(w, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(E, generator=gen, device=dev, dtype=torch.float64)
+    src = torch.searchsorted(cdf, u).clamp_max_(N - 1).to(torch.int32)
+    del u, w, cdf
+    dst = torch.randint(0, N, (E,), generator=gen, device=dev, dtype=torch.int32)
+    csr = CSR.from_edge_index(src, dst, N, device=dev)
+    del src, dst
+    feats = torch.randn(N, info["d_feat"], generator=gen, device=dev)
+    return csr, feats
+
+
+class ScatterCapture:
+    """Keeps the operands of the first call of each channel count C of the
+    B5 wrapper that the models call through (the package attribute), and
+    restores it on exit."""
+
+    def __init__(self):
+        from repro_torch.kernels import bucket_scatter as BS
+
+        self.BS, self.args = BS, {}
+
+    def __enter__(self):
+        self.orig = self.BS.bucket_scatter
+
+        def wrapped(contrib, seg_ids, n, layout=None, impl="cuda"):
+            self.args.setdefault(contrib.shape[1], (contrib, seg_ids, n, layout))
+            return self.orig(contrib, seg_ids, n, layout, impl)
+
+        self.BS.bucket_scatter = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.BS.bucket_scatter = self.orig
+
+
+def gnn_agreement(G, apply, cfg, params, feats, batches, preds) -> float:
+    """impl='torch' against impl='cuda' on the timed requests' sampled
+    batches: every output of the forward, and the timed run's predictions at
+    the seeds, within GNN_TOL of each output's max |value|; returns the
+    largest error over that max."""
+    plain = dataclasses.replace(cfg, impl="torch")
+    worst = 0.0
+    for (gids, src, dst), pred in zip(batches, preds):
+        x = feats[gids.long()]
+        g = G.GraphBatch(node_feat=x, edge_src=src, edge_dst=dst, coords=x[:, :3])
+        got, ref = apply(cfg, params, g), apply(plain, params, g)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for a, b in zip((pred,) + got, (ref[0][:pred.shape[0]],) + ref):
+            scale = max(float(b.abs().max()), 1e-30)
+            err = close(a, b, GNN_TOL * scale, 0.0, f"gnn {cfg.name} impl cuda vs torch")
+            worst = max(worst, err / scale)
+    return worst
+
+
+def b5_entry(arch: str, C: int, contrib, seg, n: int, layout, launches: int) -> dict:
+    """B5 against its plain version on operands of a request (float32,
+    tolerance 1e-4 as in the reference's sweep), timed beside
+    ``index_add_``."""
+    from repro_torch.kernels import bucket_scatter as BS
+
+    E, seg_long = contrib.shape[0], seg.long()
+    return model_entry(
+        "bucket_scatter", f"{arch},C={C}",
+        lambda: BS.bucket_scatter(contrib, seg, n, layout),
+        lambda: BS.bucket_scatter_plain(contrib, seg, n),
+        lambda: torch.zeros((n, C), device=contrib.device).index_add_(0, seg_long, contrib),
+        4.0 * (E * C + n * C) + 8.0 * (n + 1), 1.0 * E * C, F32_FLOP_PER_S,
+        1e-4, 1e-4, launches)
+
+
+def phase_gnn() -> tuple:
+    """Returns (report dict, kernel lines of B5)."""
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.graphdata.sampler import sample_union_graph
+    from repro_torch.kernels import bucket_scatter as BS
+
+    G, configs, apply = gnn_modules()
+    info = dict(GNN_SHAPES[GNN_SHAPE])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    csr, feats = gnn_graph(info, gen)
+    torch.cuda.synchronize()
+    N, F, S, fanout = info["n_nodes"], info["d_feat"], info["batch_nodes"], info["fanout"]
+    free_memory()
+    graph_bytes = sum(t.numel() * t.element_size() for t in (csr.indptr, csr.indices, feats))
+    deg = (csr.indptr[1:] - csr.indptr[:-1]).long()
+    info.update(seed=SEED, generate_s=time.perf_counter() - t0, graph_bytes=graph_bytes,
+                max_degree=int(deg.max()), degree_0_nodes=int((deg == 0).sum()),
+                n_edges_built=int(csr.indices.numel()), requests=GNN_REQUESTS)
+    if info["n_edges_built"] != info["n_edges"]:
+        raise AssertionError("gnn: the CSR does not hold every edge")
+    log(f"gnn: {GNN_SHAPE} graph on the card: {N} nodes, {info['n_edges']} edges (max degree "
+        f"{info['max_degree']}, {info['degree_0_nodes']} of degree 0), features {N} x {F} "
+        f"float32; {graph_bytes / 2**30:.3f} GiB resident; made in {info['generate_s']:.1f}s")
+    del deg
+
+    def request(arch, cfg, params, seeds, marks=None):
+        """One request: sample → gather → forward (the ``GraphBatch`` with
+        its CSR pointer, then ``*_apply``); returns the predictions at the
+        seeds and the sampled ids.  ``marks``: 4 CUDA events."""
+        def mark(i):
+            if marks:
+                marks[i].record()
+
+        mark(0)
+        gids, src, dst = sample_union_graph(csr, seeds, fanout, gen)
+        mark(1)
+        x = feats[gids.long()]
+        mark(2)
+        g = G.GraphBatch(node_feat=x, edge_src=src, edge_dst=dst, coords=x[:, :3])
+        out = apply[arch](cfg, params, g)
+        pred = (out[0] if isinstance(out, tuple) else out)[:S]
+        mark(3)
+        return pred, (gids, src, dst)
+
+    archs, entries = {}, []
+    total_b5 = 0
+    want_b5 = sum(b5_per_forward(a, configs[a].CONFIG) for a in GNN_ARCHS) * GNN_REQUESTS
+    for arch in GNN_ARCHS:
+        cfg = configs[arch].CONFIG
+        params = G.INIT[arch](cfg, gen, F, device=dev)
+        n_params = sum(t.numel() for t in leaves(params))
+        seeds = [torch.randperm(N, generator=gen, device=dev)[:S].to(torch.int32)
+                 for _ in range(GNN_REQUESTS + 1)]
+        request(arch, cfg, params, seeds[0])       # warm-up; the allocator keeps its blocks
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        rows, batches, preds, peak = [], [], [], 0
+        BS.reset_launches()           # the count is 0 just before the requests
+        for i in range(1, GNN_REQUESTS + 1):
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            pred, batch = request(arch, cfg, params, seeds[i], ev)
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            rows.append(dict(sample_ms=ev[0].elapsed_time(ev[1]),
+                             gather_ms=ev[1].elapsed_time(ev[2]),
+                             forward_ms=ev[2].elapsed_time(ev[3]),
+                             request_ms=ev[0].elapsed_time(ev[3])))
+            batches.append(batch)
+            preds.append(pred)
+        launches = BS.LAUNCHES["bucket_scatter"]    # read just after
+        want = b5_per_forward(arch, cfg) * GNN_REQUESTS
+        if launches != want:
+            raise AssertionError(f"gnn {arch}: B5 launched {launches} times, want {want}")
+        total_b5 += launches
+        med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+        n_sub, e_sub = int(batches[0][0].numel()), int(batches[0][1].numel())
+        prof = traced(lambda: request(arch, cfg, params, seeds[1]))
+
+        worst = gnn_agreement(G, apply[arch], cfg, params, feats, batches, preds)
+        del batches, preds
+        archs[arch] = dict(params=n_params, union_nodes=n_sub, union_edges=e_sub,
+                           b5_launches=launches, b5_per_request=launches // GNN_REQUESTS,
+                           median=med, requests=rows, resident_bytes=resident,
+                           peak_bytes=peak, request_peak_bytes=peak - resident,
+                           err_over_max_output=worst, profile=prof)
+        log(f"gnn: {arch:12s} {n_params} params, {GNN_REQUESTS} requests of {S} seeds "
+            f"({n_sub} nodes, {e_sub} edges): median request {med['request_ms']:.3f} ms = "
+            f"sample {med['sample_ms']:.3f} + gather {med['gather_ms']:.3f} + forward "
+            f"{med['forward_ms']:.3f}; peak_GiB={peak / 2**30:.3f} resident_GiB="
+            f"{resident / 2**30:.3f}; B5 launches {launches}; impl torch within "
+            f"{worst:.3g} of max |output| (bound {GNN_TOL})")
+        log_trace(f"profile: gnn {arch} request", prof)
+
+        # B5 on this model's operands in a request.  Launches: the phase's
+        # count, which each model's check above holds to want_b5.
+        with ScatterCapture() as cap:
+            request(arch, cfg, params, seeds[1])
+        entries += [b5_entry(arch, C, *cap.args[C], want_b5) for C in GNN_B5_LINES.get(arch, ())]
+        del params, cap
+        free_memory()
+    info.update(archs=archs, b5_launches=total_b5)
+    del csr, feats
+    free_memory()
+    return info, entries
+
+
 def main(argv=None) -> int:
     warnings.filterwarnings("ignore", message="Sparse")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1069,11 +1374,13 @@ def main(argv=None) -> int:
     REPORT["profile"] = phase_profile(graph, jobs)
     rec.capture(lambda j: run_job(graph, jobs[j]))
     kernels = phase_kernels(rec, REPORT["main"]["launches"])
+    kernels.append(warp_entry(graph, jobs))
     del rec, graph, jobs
     free_memory()
     REPORT["lm"], lm_kernels = phase_lm()
     REPORT["dlrm"], dlrm_kernels = phase_dlrm()
-    kernels += lm_kernels + dlrm_kernels
+    REPORT["gnn"], gnn_kernels = phase_gnn()
+    kernels += lm_kernels + dlrm_kernels + gnn_kernels
     REPORT["kernels"] = kernels
     REPORT["wall_s"] = time.perf_counter() - t_start
     report = Path(args.report)

@@ -4,10 +4,11 @@
 // (src/repro/kernels/embedding_bag/embedding_bag.py), the lookup under each
 // of DLRM's 26 sparse features.
 //
-// What it computes: out[b, :] = sum over j of table[idx[b, j], :] for the
-// indices in [0, V) (-1 marks padding; any index outside the table is
-// skipped and not counted); for mode mean, divided by max(count, 1).
-// float32 in and out.
+// What it computes: out[b, :] = sum over j of table[min(idx[b, j], V - 1), :]
+// for the indices >= 0 (-1 marks padding and is skipped, not counted; an
+// index at or above V reads row V - 1 and is counted, as the reference's
+// gather clamps it); for mode mean, divided by max(count, 1).  float32 in
+// and out.
 //
 // What bounds it on an H100: bytes.  One add per float read; what must move
 // is the indices, one table row per distinct index and the output.  The
@@ -49,10 +50,11 @@ ebag_fwd(const float* __restrict__ table, long long V, int D, const int* __restr
     for (int e = 0; e < VEC; ++e) a[e] = 0.0f;
     int cnt = 0;
     for (int j = 0; j < L; ++j) {
-      const int r = __ldg(ix + j);
-      if (r < 0 || r >= V) continue;
+      const int raw = __ldg(ix + j);
+      if (raw < 0) continue;
+      const long long r = raw < V ? raw : V - 1;
       ++cnt;
-      const float* row = table + (long long)r * D + c;
+      const float* row = table + r * D + c;
       if constexpr (VEC == 2) {
         const float2 t = __ldg(reinterpret_cast<const float2*>(row));
         a[0] += t.x;

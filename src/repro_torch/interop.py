@@ -13,6 +13,8 @@ parameters the reference package runs on:
                          the port's model parameters from the reference's
                          parameter tree as numpy arrays (same layout, so no
                          transpose; cast to ``cfg.dtype``)
+  gnn_params_from_arrays(arch, tree)
+                         the same for a GNN of ``models/gnn.py`` (float32)
 """
 from __future__ import annotations
 
@@ -112,3 +114,34 @@ def dlrm_params_from_arrays(cfg, tree: Mapping,
                           for ly in layers]
     return dict(tables=[_tensor(t, cfg.dtype, dev) for t in tree["tables"]],
                 bot=mlp(tree["bot"]), top=mlp(tree["top"]))
+
+
+_GNN_KEYS = {
+    "pna": {"encoder", "layers", "decoder"},
+    "egnn": {"encoder", "layers", "decoder"},
+    "meshgraphnet": {"node_enc", "edge_enc", "layers", "decoder"},
+    "schnet": {"encoder", "interactions", "decoder"},
+}
+
+
+def gnn_params_from_arrays(arch: str, tree: Mapping,
+                           device: Optional[Union[str, torch.device]] = None):
+    """The port's parameters of GNN ``arch`` (``models/gnn.py``) from the
+    reference's ``INIT[arch]`` tree as numpy arrays: nested dicts and lists
+    of arrays (``{w, b}`` layers, MeshGraphNet's ``ln_e``/``ln_n``), the
+    same structure with float32 tensors."""
+    if arch not in _GNN_KEYS:
+        raise ValueError(f"unknown GNN {arch!r}")
+    if set(tree) != _GNN_KEYS[arch]:
+        raise ValueError(f"{arch}: parameter tree has {sorted(tree)}, "
+                         f"want {sorted(_GNN_KEYS[arch])}")
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, Mapping):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        return _tensor(t, torch.float32, dev)
+
+    return conv(tree)

@@ -47,6 +47,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "embedding_bag": {
         "embedding_bag_fwd": (_P, _L, _I, _P, _L, _I, _I, _P, _P),
     },
+    "bucket_scatter": {
+        "bucket_scatter_fwd": (_P, _I, _L, _P, _L, _P, _P),
+    },
+    "interval_warp": {
+        "interval_warp_fwd": (_P, _I, _P, _P, _L, _I, _P, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,5 @@
-"""Shared layers: RMS norm, rotary embedding, dense init and the MLP stack.
+"""Shared layers: RMS and layer norm, rotary embedding, dense init and the
+MLP stack.
 
 The counterparts of the reference's ``models/layers.py`` (no sharding
 helpers: the port runs on one card).  Weights keep the reference's
@@ -23,6 +24,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     ``x.dtype`` before the scale, as the reference does."""
     var = x.float().square().mean(dim=-1, keepdim=True)
     return (x.float() * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Mean and (biased) variance in float32, the normalised value rounded
+    back to ``x.dtype`` before the affine, as the reference does."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
 # -------------------------------------------------------------------- rotary

@@ -62,28 +62,29 @@ def test_embedding_bag_all_padding(mode):
 
 
 def test_embedding_bag_skips_indices_past_the_table():
+    """Padding (-1) is skipped; an index at or above V is not: it reads row
+    V - 1 and is counted, as in the reference."""
     table = torch.arange(12, dtype=torch.float32).view(3, 4)
     idx = torch.tensor([[0, 3, -1], [2, 2, 7]], dtype=torch.int32)
     got = EB.embedding_bag(table, idx, "mean")
-    assert torch.equal(got, torch.stack([table[0], table[2]]))
+    assert torch.equal(got, torch.stack([(table[0] + table[2]) / 2, table[2]]))
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])
 def test_embedding_bag_past_the_table_departs_from_reference(mode):
-    """An index at or above V: the reference clamps it to row V - 1 and
-    counts it; the port skips it, as it skips -1."""
+    """An index at or above V: the port equals the reference and its Pallas
+    kernel, which clamp it to row V - 1 and count it."""
     table = np.arange(12, dtype=np.float32).reshape(3, 4)
     idx = np.array([[0, 3, -1, 1], [2, 2, 7, -1]], np.int32)
-    past = idx >= table.shape[0]
-    as_pad, as_last = np.where(past, -1, idx), np.where(past, table.shape[0] - 1, idx)
+    as_last = np.where(idx >= table.shape[0], table.shape[0] - 1, idx)
     ref = lambda i: np.asarray(embedding_bag_ref(jnp.asarray(table), jnp.asarray(i), mode))
     pallas = np.asarray(embedding_bag_jax(jnp.asarray(table), jnp.asarray(idx), mode=mode,
                                           impl="pallas", interpret=True, block_b=2))
     np.testing.assert_array_equal(ref(idx), ref(as_last))
-    np.testing.assert_array_equal(pallas, ref(as_last))
-    got = EB.embedding_bag(torch.from_numpy(table), torch.from_numpy(idx), mode).numpy()
-    np.testing.assert_array_equal(got, ref(as_pad))
-    assert not np.array_equal(got, ref(idx))
+    np.testing.assert_array_equal(pallas, ref(idx))
+    for fn in (EB.embedding_bag, EB.embedding_bag_plain):
+        got = fn(torch.from_numpy(table), torch.from_numpy(idx), mode).numpy()
+        np.testing.assert_array_equal(got, ref(idx))
 
 
 def test_embedding_bag_rejects_unknown_mode_and_impl():

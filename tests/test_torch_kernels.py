@@ -8,14 +8,22 @@ is exact and the comparison is ``torch.equal`` whatever order the kernel sums
 in.  Attention: atol = rtol = 2e-5 in float32 (the tolerance of
 ``tests/test_kernels.py``'s sweep); in bf16 atol 1e-3 and rtol 2^-7, one
 bf16 rounding of the output, tighter than that sweep's 2e-2, since kernel and
-plain version both sum in float32.  EmbeddingBag: atol 1e-5."""
+plain version both sum in float32.  EmbeddingBag: atol 1e-5.  Segment-sum
+(B5): small integers are exact in any order (``torch.equal``); normal
+values within atol = rtol = 1e-4 in float32 (the reference's sweep) and one
+bf16 rounding (rtol 2^-7) in bfloat16, since both versions sum in float32.
+TimeWarp (B6): equal values, NaN in the same places and the same signs of
+zero.  GNN forwards on the card: impl='cuda' within 1e-4 of the largest
+|output| of impl='torch' (summation order)."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bucket_scatter as BS
 from repro_torch.kernels import embedding_bag as EB
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import hop_scatter as HK
+from repro_torch.kernels import interval_warp as IW
 
 pytestmark = pytest.mark.gpu
 
@@ -223,13 +231,15 @@ def test_flash_attention_refuses_bad_operands(dev):
 # =========================================================================
 # B8 EmbeddingBag
 # =========================================================================
-@pytest.mark.parametrize("V,D,Bb,L", [(1000, 32, 64, 8), (257, 16, 33, 3), (4096, 64, 16, 1),
-                                      (1_000_000, 64, 5000, 1), (50, 100, 40, 5)])
+@pytest.mark.parametrize("V,D,Bb,L,past", [(1000, 32, 64, 8, 0), (257, 16, 33, 3, 0),
+                                           (4096, 64, 16, 1, 0), (1_000_000, 64, 5000, 1, 0),
+                                           (50, 100, 40, 5, 0), (300, 64, 64, 6, 50)])
 @pytest.mark.parametrize("mode", ["sum", "mean"])
-def test_embedding_bag(dev, V, D, Bb, L, mode):
+def test_embedding_bag(dev, V, D, Bb, L, past, mode):
+    """``past`` > 0 draws some indices at or above V (clamped to row V - 1)."""
     rng = np.random.default_rng(V + Bb)
     table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32)).to(dev)
-    idx = rng.integers(-1, V, size=(Bb, L)).astype(np.int32)
+    idx = rng.integers(-1, V + past, size=(Bb, L)).astype(np.int32)
     idx[0] = -1                                   # a bag with no valid index
     idx_t = torch.from_numpy(idx).to(dev)
     n0 = EB.LAUNCHES["embedding_bag"]
@@ -242,11 +252,14 @@ def test_embedding_bag(dev, V, D, Bb, L, mode):
 
 
 def test_embedding_bag_skips_indices_past_the_table(dev):
+    """Padding is skipped; an index at or above V reads row V - 1 and is
+    counted, as the reference's gather clamps it."""
     table = torch.arange(12, dtype=torch.float32, device=dev).view(3, 4)
     idx = torch.tensor([[0, 3, -1], [2, 2, 1 << 30]], dtype=torch.int32, device=dev)
     out = EB.embedding_bag(table, idx, "mean")
     torch.cuda.synchronize()
-    assert torch.equal(out, torch.stack([table[0], table[2]]))
+    assert torch.equal(out, torch.stack([(table[0] + table[2]) / 2, table[2]]))
+    assert torch.equal(out, EB.embedding_bag_plain(table, idx, "mean"))
 
 
 def test_embedding_bag_refuses_bad_operands(dev):
@@ -258,3 +271,146 @@ def test_embedding_bag_refuses_bad_operands(dev):
         EB.embedding_bag(table.double(), idx)
     with pytest.raises(ValueError):
         EB.embedding_bag(table, idx.cpu())
+
+
+# =========================================================================
+# B5 segment-sum
+# =========================================================================
+def _segments(rng, E, V):
+    return torch.from_numpy(np.sort(rng.integers(0, V, size=E)).astype(np.int32))
+
+
+@pytest.mark.parametrize("E,V,C", [(1000, 100, 8), (5000, 700, 16), (300, 512, 4),
+                                   (2000, 300, 1), (2000, 300, 3), (1500, 200, 75),
+                                   (168960, 169984, 128), (4000, 900, 64), (700, 50, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bucket_scatter(dev, E, V, C, dtype):
+    rng = np.random.default_rng(E + C)
+    seg = _segments(rng, E, V).to(dev)
+    contrib = torch.from_numpy(rng.normal(size=(E, C)).astype(np.float32)).to(dev, dtype)
+    n0 = BS.LAUNCHES["bucket_scatter"]
+    out = BS.bucket_scatter(contrib, seg, V)
+    torch.cuda.synchronize()
+    assert BS.LAUNCHES["bucket_scatter"] == n0 + 1
+    assert out.dtype == dtype and tuple(out.shape) == (V, C)
+    want = BS.bucket_scatter_plain(contrib, seg, V)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+    else:
+        torch.testing.assert_close(out.float(), want.float(), atol=1e-5, rtol=2.0 ** -7)
+    empty = torch.bincount(seg.long(), minlength=V) == 0
+    assert bool((out[empty] == 0).all())
+
+
+@pytest.mark.parametrize("C", [1, 3, 75, 128])
+def test_bucket_scatter_exact_with_hub_and_empty_segments(dev, C):
+    """Integer contributions are exact in any order: a hub of 10^5 edges,
+    long runs of empty segments (first and last included)."""
+    rng = np.random.default_rng(C)
+    V = 5000
+    seg = np.concatenate([np.full(100_000, 17), rng.integers(20, V - 10, size=3000)])
+    seg = torch.from_numpy(np.sort(seg).astype(np.int32)).to(dev)
+    contrib = torch.from_numpy(rng.integers(-3, 4, size=(seg.numel(), C)).astype(np.float32))
+    contrib = contrib.to(dev)
+    lay = BS.build_layout(seg, V)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = BS.bucket_scatter(contrib.to(dtype), seg, V, layout=lay)
+        torch.cuda.synchronize()
+        # both round the same exact float32 sum once
+        assert torch.equal(out, BS.bucket_scatter_plain(contrib.to(dtype), seg, V))
+        assert bool((out[:17] == 0).all()) and bool((out[V - 10:] == 0).all())
+
+
+def test_bucket_scatter_refuses_bad_operands(dev):
+    seg = torch.zeros(6, dtype=torch.int32, device=dev)
+    c = torch.ones(6, 4, device=dev)
+    with pytest.raises(ValueError):
+        BS.bucket_scatter(c.double(), seg, 3)
+    with pytest.raises(ValueError):
+        BS.bucket_scatter(c.t(), seg, 3)                          # not contiguous
+    with pytest.raises(ValueError):
+        BS.bucket_scatter(c, seg, 3, layout=BS.build_layout(seg, 4))
+    with pytest.raises(ValueError):
+        BS.bucket_scatter(c[:5], seg[:5], 3, layout=BS.build_layout(seg, 3))
+
+
+def test_gnn_forwards_on_card(dev):
+    """Each GNN at SMOKE width on a union graph sampled on the card: impl
+    'cuda' against impl 'torch', and B5 launched as the models' code says."""
+    import dataclasses
+
+    from repro_torch.configs import egnn, meshgraphnet, pna, schnet
+    from repro_torch.graphdata.sampler import CSR, sample_union_graph
+    from repro_torch.models import gnn as G
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = 2000
+    csr = CSR.from_edge_index(torch.randint(0, n - 50, (40_000,), generator=gen, device=dev),
+                              torch.randint(0, n, (40_000,), generator=gen, device=dev), n,
+                              device=dev)
+    feats = torch.randn(n, 32, generator=gen, device=dev)
+    seeds = torch.randperm(n, generator=gen, device=dev)[:64].to(torch.int32)
+    gids, s, d = sample_union_graph(csr, seeds, (15, 10), gen)
+    x = feats[gids.long()]
+    g = G.GraphBatch(node_feat=x, edge_src=s, edge_dst=d, coords=x[:, :3])
+    apply = {"pna": G.pna_apply, "egnn": G.egnn_apply, "meshgraphnet": G.mgn_apply,
+             "schnet": G.schnet_apply}
+    per_call = {"pna": 17, "egnn": 12, "meshgraphnet": 15, "schnet": 3}
+    for arch, mod in (("pna", pna), ("egnn", egnn), ("meshgraphnet", meshgraphnet),
+                      ("schnet", schnet)):
+        cfg = mod.CONFIG
+        params = G.INIT[arch](cfg, gen, 32, device=dev)
+        n0 = BS.LAUNCHES["bucket_scatter"]
+        got = apply[arch](cfg, params, g)
+        torch.cuda.synchronize()
+        assert BS.LAUNCHES["bucket_scatter"] - n0 == per_call[arch], arch
+        want = apply[arch](dataclasses.replace(cfg, impl="torch"), params, g)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert bool(torch.isfinite(a).all())
+            scale = max(float(b.abs().max()), 1.0)
+            torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=0)
+
+
+# =========================================================================
+# B6 TimeWarp
+# =========================================================================
+def _identical(a, b):
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+            and torch.equal(torch.signbit(a[~na]), torch.signbit(b[~nb])))
+
+
+@pytest.mark.parametrize("N,B", [(512, 8), (3000, 16), (100, 32), (1_380_000, 16), (77, 1),
+                                 (1000, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_interval_warp(dev, N, B, dtype):
+    rng = np.random.default_rng(N + B)
+    cnts = rng.normal(size=(N, B)).astype(np.float32)
+    for v, p in ((np.nan, 0.02), (np.inf, 0.02), (-np.inf, 0.02), (-0.0, 0.05)):
+        cnts[rng.random((N, B)) < p] = v
+    ivl = np.stack([rng.integers(-50, 1000, N), rng.integers(0, 1200, N)], 1).astype(np.int32)
+    be = np.linspace(0, 1100, B + 1).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    counts = t(cnts).to(dtype)
+    n0 = IW.LAUNCHES["interval_warp"]
+    out = IW.interval_warp(counts, t(ivl), t(be))
+    torch.cuda.synchronize()
+    assert IW.LAUNCHES["interval_warp"] == n0 + 1
+    assert out.dtype == dtype and out.shape == counts.shape
+    assert _identical(out, IW.interval_warp_plain(counts, t(ivl), t(be)))
+
+
+def test_interval_warp_refuses_bad_operands(dev):
+    counts = torch.ones(10, 8, device=dev)
+    ivl = torch.zeros(10, 2, dtype=torch.int32, device=dev)
+    be = torch.arange(9, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        IW.interval_warp(counts, ivl.long(), be)
+    with pytest.raises(ValueError):
+        IW.interval_warp(counts, ivl, be[:8])
+    with pytest.raises(ValueError):
+        IW.interval_warp(counts.double(), ivl, be)
+    with pytest.raises(ValueError):
+        IW.interval_warp(torch.ones(10, 65, device=dev), ivl,
+                         torch.arange(66, dtype=torch.int32, device=dev))
