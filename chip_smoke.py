@@ -25,10 +25,23 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                in each mode: device busy share and the top kernels
   6. kernels   each kernel's wrapper against its plain PyTorch version on the
                inputs the main path gave it (the largest call of each
-               variant, captured by re-running the job that made it), timed with CUDA events beside its bound and the
-               PyTorch library call that computes the same function, where
-               one exists.  B4, which no engine path reaches, is held on a
-               main-path ETR delivery's edges.
+               variant, captured by re-running the job that made it), timed
+               beside its bound and the PyTorch library call that computes
+               the same function, where one exists.  ``ms`` (and plain_ms,
+               library_ms) is the median of 10 CUDA-event timings, each of
+               one call started on an idle card (``time_ms``: the host's
+               time to the launch included), on every kernel line.  A B1-B4
+               line also gives, for the kernel, its plain version and the
+               library call alike, ``*b2b_ms``, CUDA-event time per call over
+               10 calls launched back to back (``b2b_ms``), and
+               ``*device_ms``, the traced device time of a call
+               (``device_ms``).  B4, which no engine path reaches, is held on
+               a main-path ETR delivery's edges.  Each B1-B3 line also names
+               its call's shape: Q, V, E, C or B, whether the weights are
+               shared across queries, the largest arrival degree, and the
+               lane group G the wrapper launched with (``lane_group`` of the
+               lanes an edge takes; B2: the lanes of one destination and
+               query, a warp, or a block at B >= 32).
   7. lm        gemma3-4b at full width (34 layers, 3.88 B parameters in bf16,
                random weights from SEED, made on the card): first its SMOKE
                variant on the card against the port on the CPU; then the
@@ -174,7 +187,9 @@ def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median of ``iters`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
+    """Median of ``iters`` CUDA-event timings of ``fn`` after ``warmup`` calls,
+    each started on an idle card: a call's latency, the host's time to its
+    first launch included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -188,6 +203,23 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def b2b_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """CUDA-event time per call of ``fn`` over ``iters`` calls launched back
+    to back after ``warmup`` calls: the stream's time a call, in which the
+    host's launch counts only where it is slower than the device."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def close(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float, what: str) -> float:
@@ -429,6 +461,11 @@ def phase_main(recorder: Recorder):
     log(f"main: graph {PERSONS} persons: {g.n_vertices} vertices, {g.n_edges} edges, "
         f"{2 * g.n_edges} traversal edges; generate {t_gen:.1f}s, tables "
         f"{t_tables:.1f}s, upload {t_upload:.1f}s")
+    deg = np.diff(g.traversal["arr_ptr"])   # the dense hop's arrival runs
+    info["arrival_degree"] = dict(mean=float(deg.mean()), median=float(np.median(deg)),
+                                  p99=float(np.percentile(deg, 99)), max=int(deg.max()))
+    log("main: arrival degree " + ", ".join(f"{k} {v:g}"
+                                             for k, v in info["arrival_degree"].items()))
 
     wl = make_workload(g, n_per_template=N_BATCH, seed=SEED)
     by_t = {t: [i.qry for i in wl if i.template == t] for t in TEMPLATES}
@@ -561,9 +598,28 @@ def phase_profile(graph, jobs, top: int = 6) -> list:
     return out
 
 
-def _unique_rows(src: torch.Tensor, n_rows: int) -> int:
-    u = torch.unique(src)
+def _unique_rows(src: torch.Tensor, n_rows: int, needed: torch.Tensor) -> int:
+    """Distinct source rows below ``n_rows`` among the edges ``needed`` marks:
+    a hop with a weight of 0 needs no state row (B1 and B2 read none), so a
+    bound that counted every edge's row would not be one."""
+    u = torch.unique(src[needed])
     return int((u < n_rows).sum())
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: the summed time of the kernels it
+    launches (torch.profiler), over ``iters`` calls, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def phase_kernels(recorder: Recorder, launches: dict) -> list:
@@ -571,7 +627,9 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
 
     entries = []
 
-    def entry(name, variant, kern, plain, library, nbytes, flops):
+    def entry(name, variant, kern, plain, library, nbytes, flops, shape=None):
+        """One B1-B4 line: ``ms``, ``plain_ms`` and ``library_ms`` are
+        ``time_ms``; ``*b2b_ms`` and ``*device_ms`` beside them."""
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -583,23 +641,32 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
             err["max_abs_err"] = max(err["max_abs_err"], e["max_abs_err"])
             err["n_ge_2_24"] += e["n_ge_2_24"]
         del got, want
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain)
-        library_ms = time_ms(library) if library is not None else None
+        times = {}
+        for who, fn in (("", kern), ("plain_", plain), ("library_", library)):
+            for how, timer in (("ms", time_ms), ("b2b_ms", b2b_ms), ("device_ms", device_ms)):
+                times[who + how] = timer(fn) if fn is not None else None
         b_ms, b_by = bound(nbytes, flops)
         e = dict(name=f"{name}[{variant}]", route="cuda", source=SOURCE[name],
                  replaces=REPLACES[name], launches=launches[name],
-                 max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
-                 bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                 n_ge_2_24=err["n_ge_2_24"], bytes=nbytes, flops=flops)
+                 max_abs_err=err["max_abs_err"], **times, bound_ms=b_ms, bound_by=b_by,
+                 n_ge_2_24=err["n_ge_2_24"], bytes=nbytes, flops=flops, shape=shape)
         entries.append(e)
-        log(f"kernels: {e['name']:34s} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
-            f"bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err['max_abs_err']} "
-            f"n>=2^24={err['n_ge_2_24']} launches={launches[name]}")
+        log(f"kernels: {e['name']:34s} "
+            + " ".join(f"{k}={v if v is None else round(v, 4)}" for k, v in times.items())
+            + f" bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err['max_abs_err']} "
+            f"n>=2^24={err['n_ge_2_24']} launches={launches[name]}"
+            + "".join(f" {k}={v}" for k, v in (shape or {}).items()))
         torch.cuda.empty_cache()
 
     f32 = 4
+
+    def csr_shape(Qn, ptr, E, w):
+        """The call's query count, CSR size, largest arrival degree and
+        whether its weights are shared across queries (query stride 0)."""
+        V = ptr.numel() - 1
+        deg = int((ptr[1:] - ptr[:-1]).max()) if V else 0
+        return dict(Q=Qn, V=V, E=E, w_shared=Qn > 1 and w.stride(0) == 0, max_deg=deg)
+
     for key in sorted(recorder.inputs, key=str):
         name, a, kw = recorder.inputs[key]
         mch = kw.get("mch")
@@ -607,7 +674,7 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
             state, src, w, ptr = a
             Qn, N, C = state.shape
             E, V = src.numel(), ptr.numel() - 1
-            U = _unique_rows(src, N)
+            U = _unique_rows(src, N, (w != 0).any(dim=2).any(dim=0))
             qw = 1 if (Qn == 1 or w.stride(0) == 0) else Qn
             nbytes = f32 * (V + 1 + E + qw * E * C + Qn * U * C + Qn * V * C)
             if mch is not None:
@@ -628,15 +695,18 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
                 compare(library().t(), HK.fused_hop_cols(*a, **kw)[0][:, :, 0],
                         "library sparse.mm vs fused_hop_cols")
             variant = f"C={C}" + (",extremum" if mch is not None else "")
+            vec = HK.cols_vector_width(C, mch is not None, (state, HK.query_stride(state, "state")),
+                                       (w, HK.query_stride(w, "w")))
             entry(name, variant, lambda: HK.fused_hop_cols(*a, **kw),
                   lambda: HK.fused_hop_cols_plain(*a, **kw), library, nbytes,
-                  2.0 * Qn * E * C)
+                  2.0 * Qn * E * C,
+                  dict(csr_shape(Qn, ptr, E, w), C=C, G=HK.lane_group(E, V, C // vec)))
         elif name == "fused_hop_interval":
             state, src, w, sb, eb, ptr = a
             Qn, N, B, Bp1 = state.shape
             NC = B * Bp1
             E, V = src.numel(), ptr.numel() - 1
-            U = _unique_rows(src, N)
+            U = _unique_rows(src, N, (w != 0).any(dim=0))
             qw = 1 if (Qn == 1 or w.stride(0) == 0) else Qn
             active = int(((w != 0) & (src < N)[None]).sum())
             nbytes = f32 * (V + 1 + E + 3 * qw * E + Qn * U * NC + Qn * V * NC)
@@ -645,7 +715,9 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
             variant = f"B={B}" + (",extremum" if mch is not None else "")
             entry(name, variant, lambda: HK.fused_hop_interval(*a, **kw),
                   lambda: HK.fused_hop_interval_plain(*a, **kw), None, nbytes,
-                  4.0 * active * NC)
+                  4.0 * active * NC,
+                  dict(csr_shape(Qn, ptr, E, w), B=B,
+                       lanes=HK.WARP if B + 1 <= HK.WARP else "block"))
         else:
             contrib, ptr = a
             Qn, E = contrib.shape[:2]
@@ -655,9 +727,11 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
             out0 = contrib.new_zeros((Qn, V) + tuple(contrib.shape[2:]))
             library = lambda: out0.clone().index_add_(1, seg, contrib)
             nbytes = f32 * (V + 1 + Qn * E * C + Qn * V * C)
+            vec = HK.vector_width(C, (contrib, HK.query_stride(contrib, "contrib")))
             entry(name, f"C={C}", lambda: (HK.scatter_cols(*a), None),
                   lambda: (HK.scatter_cols_plain(*a), None), library, nbytes,
-                  1.0 * Qn * E * C)
+                  1.0 * Qn * E * C,
+                  dict(csr_shape(Qn, ptr, E, contrib), C=C, G=HK.lane_group(E, V, C // vec)))
     # B4 on the edges of the largest main-path ETR delivery (static, C = 1)
     key = ("scatter_cols", 1, False)
     contrib, ptr = recorder.inputs[key][1]

@@ -32,11 +32,11 @@ _F = ctypes.c_float
 #: C signature of every entry point, by source
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "hop_scatter": {
-        "hop_fused_cols": (_P, _L, _I, _I, _P, _P, _L, _P, _I, _I, _P, _L, _F,
-                           _I, _P, _P, _P),
+        "hop_fused_cols": (_P, _L, _L, _I, _I, _P, _P, _L, _P, _I, _I, _I, _I, _P,
+                           _L, _L, _F, _I, _P, _P, _P),
         "hop_fused_interval": (_P, _L, _I, _I, _P, _P, _L, _P, _L, _P, _L, _P,
                                _I, _I, _P, _L, _F, _I, _P, _P, _P),
-        "hop_scatter_cols": (_P, _L, _I, _P, _I, _I, _P, _P),
+        "hop_scatter_cols": (_P, _L, _I, _P, _I, _I, _I, _I, _P, _P),
         "hop_scatter_extremum": (_P, _L, _P, _L, _P, _I, _I, _F, _I, _P, _P),
     },
     "flash_attention": {

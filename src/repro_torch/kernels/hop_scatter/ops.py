@@ -24,7 +24,10 @@ Four wrappers, one per CUDA kernel of ``csrc/hop_scatter.cu``:
 A wrapper given CPU tensors runs its plain version (``*_plain``); given CUDA
 tensors it launches its kernel or raises.  ``LAUNCHES`` counts kernel
 launches by wrapper name.  The sources say which TPU kernel each replaces and
-what bounds it on the card.
+what bounds it on the card.  B1's and B3's launch choices are pure functions
+of the shapes and alignments, made on the host without a device sync:
+``cols_vector_width`` / ``vector_width`` (columns a lane loads) and
+``lane_group`` (edge slots a destination).
 """
 from __future__ import annotations
 
@@ -36,6 +39,9 @@ from .. import build
 
 LAUNCHES = {"fused_hop_cols": 0, "fused_hop_interval": 0, "scatter_cols": 0,
             "scatter_extremum": 0}
+WARP = 32
+SECTOR_FLOATS = 8   # floats in a 32-byte sector
+VEC = 4             # floats in a float4
 
 
 def reset_launches() -> None:
@@ -148,12 +154,18 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _qstride(t: torch.Tensor, name: str) -> int:
+def query_stride(t: torch.Tensor, name: str) -> int:
     """Query-axis stride in elements: per-query rows must be contiguous, and
-    the query axis either packed or broadcast (stride 0)."""
-    if not t[0].is_contiguous():
-        raise ValueError(f"{name}: each query's rows must be contiguous")
-    inner = t[0].numel()
+    the query axis either packed or broadcast (stride 0).  Read from the
+    strides alone (no view is made: this runs on every launch)."""
+    if t.shape[0] > 1 and t.is_contiguous():
+        return t.stride(0)
+    shape, strides = t.shape, t.stride()
+    inner = 1
+    for i in range(len(shape) - 1, 0, -1):
+        if shape[i] > 1 and strides[i] != inner:
+            raise ValueError(f"{name}: each query's rows must be contiguous")
+        inner *= max(shape[i], 1)
     if t.shape[0] > 1 and t.stride(0) not in (0, inner):
         raise ValueError(f"{name}: query stride must be 0 or {inner}")
     return t.stride(0) if t.shape[0] > 1 else inner
@@ -166,6 +178,62 @@ def _check_index(t: torch.Tensor, name: str, device) -> None:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def vector_width(C: int, *rows: Tuple[torch.Tensor, int]) -> int:
+    """Columns a lane of the narrow-row kernels loads at once: 4 (a float4)
+    where C is a multiple of 4 and every table (tensor, query stride) starts
+    and strides on 16 bytes, else 1."""
+    if C % VEC or any(t.data_ptr() % 16 or qs % VEC for t, qs in rows):
+        return 1
+    return VEC
+
+
+def cols_vector_width(C: int, extremum: bool, *rows: Tuple[torch.Tensor, int]) -> int:
+    """Columns a lane of B1's narrow kernel loads: 1 where the extremum
+    channel makes B1 read the packed [N, Q, C + 1] table (C below a sector:
+    its rows are C + 1 wide), else ``vector_width`` over the state and
+    weights, given as (tensor, query stride)."""
+    if extremum and C < SECTOR_FLOATS:
+        return 1
+    return vector_width(C, *rows)
+
+
+def lane_group(n_edges: int, n_dst: int, lanes: int) -> int:
+    """Edge slots per destination of the narrow-row kernels, for an edge
+    that takes ``lanes`` lanes (C / vector width, a power of two <= 32): the
+    largest power of two G not above half the mean arrival degree E / V,
+    between 1 and 32 / lanes, so that the G * lanes lanes of a destination
+    fit in a warp and one of typical degree is done in about two steps.
+    Known on the host from the shapes, with no device sync; 1 where the
+    kernel has no narrow path (``lanes`` not a power of two <= 32)."""
+    if lanes < 1 or lanes > WARP or WARP % lanes:
+        return 1
+    g = 1
+    while 2 * g * lanes <= WARP and 4 * g * n_dst <= n_edges:
+        g *= 2
+    return g
+
+
+def _source_table(state, sq, mch):
+    """The state (query stride ``sq``) and extremum channel as B1 reads them:
+    (table, query stride, row stride, channel or None, its query stride, its
+    row stride).  With the channel, on rows narrower than a 32-byte sector, a
+    [N, Q, C + 1] copy puts a source's state and channel for 8 queries in 64
+    bytes (the [Q, N, C] tables cost a sector a query, and the channel as
+    many more); on wider rows the channel alone goes to [N, Q], a sector for
+    8 queries.  A copy's time counts as the kernel's."""
+    Qn, N, C = state.shape
+    if mch is None:
+        return state, sq, C, None, 0, 0
+    if C < SECTOR_FLOATS:
+        table = torch.cat([state.transpose(0, 1), mch.t()[..., None]], dim=2)
+        W = C + 1
+        return table, W, Qn * W, table[:, :, C], W, Qn * W
+    mq = query_stride(mch, "mch")
+    if Qn > 1 and mq != 0:
+        return state, sq, C, mch.t().contiguous(), 1, Qn
+    return state, sq, C, mch, mq, 1
 
 
 def fused_hop_cols(state, src, w, ptr, mch=None, neutral: float = 0.0,
@@ -181,20 +249,20 @@ def fused_hop_cols(state, src, w, ptr, mch=None, neutral: float = 0.0,
     _check_index(ptr, "ptr", dev)
     _check(state, "state", torch.float32, (Qn, N, C), dev)
     _check(w, "w", torch.float32, (Qn, E, C), dev)
-    sq, wq = _qstride(state, "state"), _qstride(w, "w")
-    mq, mptr = 0, None
+    sq, wq = query_stride(state, "state"), query_stride(w, "w")
     if mch is not None:
         _check(mch, "mch", torch.float32, (Qn, N), dev)
-        mq, mptr = _qstride(mch, "mch"), mch.data_ptr()
     out = torch.empty((Qn, V, C), dtype=torch.float32, device=dev)
     mout = torch.empty((Qn, V), dtype=torch.float32, device=dev) if mch is not None else None
     if V and Qn:
-        lib = build.load()
-        err = lib.hop_fused_cols(state.data_ptr(), sq, N, C, src.data_ptr(),
-                                 w.data_ptr(), wq, ptr.data_ptr(), V, Qn, mptr, mq,
-                                 float(neutral), int(op_is_min), out.data_ptr(),
-                                 None if mout is None else mout.data_ptr(),
-                                 _stream(dev))
+        vec = cols_vector_width(C, mch is not None, (state, sq), (w, wq))
+        G = lane_group(E, V, C // vec)
+        table, sq, rs, chan, mq, mrs = _source_table(state, sq, mch)
+        err = build.load().hop_fused_cols(
+            table.data_ptr(), sq, rs, N, C, src.data_ptr(), w.data_ptr(), wq, ptr.data_ptr(),
+            V, Qn, vec, G, None if chan is None else chan.data_ptr(), mq, mrs, float(neutral),
+            int(op_is_min), out.data_ptr(), None if mout is None else mout.data_ptr(),
+            _stream(dev))
         build.check(err, "hop_fused_cols")
         LAUNCHES["fused_hop_cols"] += 1
     return out, mout
@@ -218,12 +286,12 @@ def fused_hop_interval(state, src, w, sb, eb, ptr, mch=None, neutral: float = 0.
     _check(w, "w", torch.float32, (Qn, E), dev)
     _check(sb, "sb", torch.int32, (Qn, E), dev)
     _check(eb, "eb", torch.int32, (Qn, E), dev)
-    sq = _qstride(state, "state")
-    wq, sbq, ebq = _qstride(w, "w"), _qstride(sb, "sb"), _qstride(eb, "eb")
+    sq = query_stride(state, "state")
+    wq, sbq, ebq = query_stride(w, "w"), query_stride(sb, "sb"), query_stride(eb, "eb")
     mq, mptr = 0, None
     if mch is not None:
         _check(mch, "mch", torch.float32, (Qn, N), dev)
-        mq, mptr = _qstride(mch, "mch"), mch.data_ptr()
+        mq, mptr = query_stride(mch, "mch"), mch.data_ptr()
     out = torch.empty((Qn, V, B, Bp1), dtype=torch.float32, device=dev)
     mout = torch.empty((Qn, V), dtype=torch.float32, device=dev) if mch is not None else None
     if V and Qn:
@@ -254,12 +322,13 @@ def scatter_cols(contrib, ptr) -> torch.Tensor:
     _check_index(ptr, "ptr", dev)
     if contrib.dtype != torch.float32:
         raise TypeError(f"contrib must be float32, got {contrib.dtype}")
-    cq = _qstride(contrib, "contrib")
+    cq = query_stride(contrib, "contrib")
     out = torch.empty((Qn, V) + ts, dtype=torch.float32, device=dev)
     if V and Qn:
-        lib = build.load()
-        err = lib.hop_scatter_cols(contrib.data_ptr(), cq, C, ptr.data_ptr(), V, Qn,
-                                   out.data_ptr(), _stream(dev))
+        vec = vector_width(C, (contrib, cq))
+        G = lane_group(E, V, C // vec)
+        err = build.load().hop_scatter_cols(contrib.data_ptr(), cq, C, ptr.data_ptr(), V, Qn,
+                                            vec, G, out.data_ptr(), _stream(dev))
         build.check(err, "hop_scatter_cols")
         LAUNCHES["scatter_cols"] += 1
     return out
@@ -276,7 +345,7 @@ def scatter_extremum(m_e, alive, ptr, neutral: float, op_is_min: bool) -> torch.
     _check_index(ptr, "ptr", dev)
     _check(m_e, "m_e", torch.float32, (Qn, E), dev)
     _check(alive, "alive", torch.float32, (Qn, E), dev)
-    mq, aq = _qstride(m_e, "m_e"), _qstride(alive, "alive")
+    mq, aq = query_stride(m_e, "m_e"), query_stride(alive, "alive")
     out = torch.empty((Qn, V), dtype=torch.float32, device=dev)
     if V and Qn:
         lib = build.load()

@@ -1,5 +1,6 @@
 """The torch port stands alone: it imports neither JAX nor the reference
-package, and ``chip_smoke.py`` neither."""
+package, and ``chip_smoke.py`` and the port's scripts (``scripts/torch_*.py``)
+neither."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _port_modules():

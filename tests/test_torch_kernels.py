@@ -5,7 +5,13 @@ skips elsewhere; run them there with
 
 Hop kernels: inputs are small non-negative integers in float32, so every sum
 is exact and the comparison is ``torch.equal`` whatever order the kernel sums
-in.  Attention: atol = rtol = 2e-5 in float32 (the tolerance of
+in; B1, B2 and B3 also on the skewed CSRs of ``hop_cases`` (the shapes on
+which ``tests/test_torch_hop_design.py`` holds B1's and B2's plain versions
+to the JAX package), B1 and B2 on a 2^20-edge hub, B1 at every lane-group
+size with and without the extremum, and B1 once with
+sums above 2^24 over at most 8 edges a destination, held to rtol 1e-6 (each
+order's rounding error is at most 7 units of 2^-24 of the sum).
+Attention: atol = rtol = 2e-5 in float32 (the tolerance of
 ``tests/test_kernels.py``'s sweep); in bf16 atol 1e-3 and rtol 2^-7, one
 bf16 rounding of the output, tighter than that sweep's 2e-2, since kernel and
 plain version both sum in float32.  EmbeddingBag: atol 1e-5.  Segment-sum
@@ -15,6 +21,7 @@ bf16 rounding (rtol 2^-7) in bfloat16, since both versions sum in float32.
 TimeWarp (B6): equal values, NaN in the same places and the same signs of
 zero.  GNN forwards on the card: impl='cuda' within 1e-4 of the largest
 |output| of impl='torch' (summation order)."""
+import hop_cases
 import numpy as np
 import pytest
 import torch
@@ -101,6 +108,161 @@ def test_fused_hop_interval(dev, B, extremum):
         assert torch.equal(mm, ref_mm)
 
 
+def _run_cols(case, dev, ext, Q):
+    """B1 on a hop_cases operand dict against its plain version."""
+    t = lambda a: torch.from_numpy(a).to(dev)
+    kw = {}
+    if ext:
+        kw = dict(mch=t(case["mch"]), neutral=float("inf") if ext == "min" else float("-inf"),
+                  op_is_min=ext == "min")
+    a = (t(case["state"]), t(case["src"]), t(case["w"]).expand(Q, -1, -1), t(case["ptr"]))
+    n0 = HK.LAUNCHES["fused_hop_cols"]
+    out, mm = HK.fused_hop_cols(*a, **kw)
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["fused_hop_cols"] == n0 + 1
+    ref, ref_mm = HK.fused_hop_cols_plain(*a, **kw)
+    return out, mm, ref, ref_mm
+
+
+@pytest.mark.parametrize("ext", [None, "min", "max"])
+@pytest.mark.parametrize("shared_w", [False, True])
+@pytest.mark.parametrize("Q", [1, 3, 8, 11])
+@pytest.mark.parametrize("C", [1, 4, 16, 32, 64, 128])
+def test_fused_hop_cols_skewed(dev, C, Q, shared_w, ext):
+    """Degree-0 and degree-1 runs, each lane-group size +-1, a 238-degree
+    destination; query tiles of 8 with a partial last tile at Q = 11; at
+    C = 64 and 128 an edge takes 16 and 32 float4 lanes."""
+    case = hop_cases.cols_case(C * 100 + Q, Q, 200, 300, C, shared_w)
+    out, mm, ref, ref_mm = _run_cols(case, dev, ext, Q)
+    assert torch.equal(out, ref)
+    if ext:
+        assert torch.equal(mm, ref_mm)
+        assert bool((ref_mm == float("inf") if ext == "min" else ref_mm == float("-inf")).any())
+    else:
+        assert mm is None
+
+
+@pytest.mark.parametrize("ext", [None, "max"])
+@pytest.mark.parametrize("C", [1, 4, 16])
+@pytest.mark.parametrize("g", hop_cases.GROUPS)
+def test_fused_hop_cols_each_lane_group(dev, g, C, ext):
+    """Mean degree near 2g, so the wrapper's lane group runs through every
+    size it can take at this C (a 238-degree destination among them).  The
+    lanes an edge takes are C / 4 on float4 lanes, but C where the extremum
+    reads the packed [N, Q, C + 1] table (C < 8)."""
+    rng = np.random.default_rng(g * 10 + C)
+    V, N, Q = 400, 300, 8
+    deg = rng.integers(2 * g - 1, 2 * g + 2, size=V)   # mean degree just above 2g
+    deg[7] = hop_cases.HUB
+    ptr = np.zeros(V + 1, np.int32)
+    np.cumsum(deg, out=ptr[1:])
+    E = int(ptr[-1])
+    case = dict(state=rng.integers(0, 4, size=(Q, N, C)).astype(np.float32),
+                src=rng.integers(0, N + 1, size=E).astype(np.int32),
+                w=(rng.random((1, E, C)) < 0.6).astype(np.float32), ptr=ptr,
+                mch=rng.integers(1, 500, size=(Q, N)).astype(np.float32))
+    state = torch.from_numpy(case["state"]).to(dev)
+    w = torch.from_numpy(case["w"]).to(dev).expand(Q, -1, -1)
+    vec = HK.cols_vector_width(C, ext is not None, (state, HK.query_stride(state, "state")),
+                               (w, HK.query_stride(w, "w")))
+    assert vec == (4 if C % 4 == 0 and not (ext and C < 8) else 1)
+    lanes = C // vec
+    assert HK.lane_group(E, V, lanes) == min(g, 32 // lanes)
+    out, mm, ref, ref_mm = _run_cols(case, dev, ext, Q)
+    assert torch.equal(out, ref)
+    if ext:
+        assert torch.equal(mm, ref_mm)
+
+
+@pytest.mark.parametrize("C", [1, 16])
+def test_fused_hop_cols_hub_of_2_20_edges(dev, C):
+    rng = np.random.default_rng(C)
+    V, N, Q = 500, 4000, 3
+    deg = np.minimum(rng.zipf(1.8, size=V) - 1, 40)
+    deg[123] = 1 << 20
+    ptr = np.zeros(V + 1, np.int64)
+    np.cumsum(deg, out=ptr[1:])
+    E = int(ptr[-1])
+    case = dict(state=rng.integers(0, 4, size=(Q, N, C)).astype(np.float32),
+                src=rng.integers(0, N + 1, size=E).astype(np.int32),
+                w=(rng.random((Q, E, C)) < 0.6).astype(np.float32), ptr=ptr.astype(np.int32),
+                mch=rng.integers(1, 500, size=(Q, N)).astype(np.float32))
+    out, mm, ref, ref_mm = _run_cols(case, dev, "min", Q)
+    assert torch.equal(out, ref) and torch.equal(mm, ref_mm)
+
+
+@pytest.mark.parametrize("C", [1, 16])
+def test_fused_hop_cols_sums_above_2_24(dev, C):
+    """Odd counts in [2^20, 2^22) over at most 8 edges a destination: sums
+    pass 2^24, so the two summation orders may round apart, each by at most
+    7 units of 2^-24 of the sum: rtol 1e-6."""
+    rng = np.random.default_rng(24 + C)
+    V, N, Q = 600, 500, 8
+    deg = rng.integers(0, 9, size=V)
+    ptr = np.zeros(V + 1, np.int32)
+    np.cumsum(deg, out=ptr[1:])
+    E = int(ptr[-1])
+    case = dict(state=(2 * rng.integers(1 << 19, 1 << 21, size=(Q, N, C)) + 1).astype(np.float32),
+                src=rng.integers(0, N, size=E).astype(np.int32),
+                w=np.ones((1, E, C), np.float32), ptr=ptr,
+                mch=rng.integers(1, 500, size=(Q, N)).astype(np.float32))
+    out, mm, ref, ref_mm = _run_cols(case, dev, "min", Q)
+    assert bool((ref >= 2.0 ** 24).any())
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
+    assert torch.equal(mm, ref_mm)
+
+
+def _run_interval(case, dev, ext, Q, B):
+    t = lambda a: torch.from_numpy(a).to(dev)
+    kw = {}
+    if ext:
+        kw = dict(mch=t(case["mch"]), neutral=float("inf") if ext == "min" else float("-inf"),
+                  op_is_min=ext == "min")
+    w, sb, eb = (t(case[k]).expand(Q, -1) for k in ("w", "sb", "eb"))
+    a = (t(case["state"]), t(case["src"]), w, sb, eb, t(case["ptr"]))
+    n0 = HK.LAUNCHES["fused_hop_interval"]
+    out, mm = HK.fused_hop_interval(*a, **kw)
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["fused_hop_interval"] == n0 + 1
+    ref, ref_mm = HK.fused_hop_interval_plain(*a, **kw)
+    return out, mm, ref, ref_mm
+
+
+@pytest.mark.parametrize("ext", [None, "min", "max"])
+@pytest.mark.parametrize("shared_w", [False, True])
+@pytest.mark.parametrize("Q", [1, 3])
+@pytest.mark.parametrize("B", [4, 16, 31, 40])
+def test_fused_hop_interval_skewed(dev, B, Q, shared_w, ext):
+    """The warp path (B + 1 <= 32) and the block path (B = 40) on the
+    skewed CSRs."""
+    case = hop_cases.interval_case(B * 10 + Q, Q, 150, 200, B, shared_w)
+    out, mm, ref, ref_mm = _run_interval(case, dev, ext, Q, B)
+    assert torch.equal(out, ref)
+    if ext:
+        assert torch.equal(mm, ref_mm)
+    else:
+        assert mm is None
+
+
+def test_fused_hop_interval_hub_of_2_20_edges(dev):
+    rng = np.random.default_rng(20)
+    V, N, Q, B = 300, 2000, 1, 16
+    deg = np.minimum(rng.zipf(1.8, size=V) - 1, 40)
+    deg[77] = 1 << 20
+    ptr = np.zeros(V + 1, np.int64)
+    np.cumsum(deg, out=ptr[1:])
+    E = int(ptr[-1])
+    cells = rng.integers(0, 3, size=(Q, N, B, B + 1)).astype(np.float32)
+    cells *= np.triu(np.ones((B, B + 1), np.float32), 1)
+    case = dict(state=cells, src=rng.integers(0, N + 1, size=E).astype(np.int32),
+                w=(rng.random((Q, E)) < 0.7).astype(np.float32),
+                sb=rng.integers(0, B, size=(Q, E)).astype(np.int32),
+                eb=rng.integers(0, B + 1, size=(Q, E)).astype(np.int32),
+                ptr=ptr.astype(np.int32), mch=rng.integers(1, 500, size=(Q, N)).astype(np.float32))
+    out, mm, ref, ref_mm = _run_interval(case, dev, "max", Q, B)
+    assert torch.equal(out, ref) and torch.equal(mm, ref_mm)
+
+
 @pytest.mark.parametrize("C", [1, 16, 272])
 def test_scatter_cols(dev, C):
     rng = np.random.default_rng(C)
@@ -111,6 +273,23 @@ def test_scatter_cols(dev, C):
     ptr_t = torch.from_numpy(ptr).to(dev)
     out = HK.scatter_cols(contrib, ptr_t)
     torch.cuda.synchronize()
+    assert torch.equal(out, HK.scatter_cols_plain(contrib, ptr_t))
+
+
+@pytest.mark.parametrize("Q", [1, 3, 11])
+@pytest.mark.parametrize("C", [1, 4, 16, 64, 128, 272])
+def test_scatter_cols_skewed(dev, C, Q):
+    """B3 on the skewed CSRs of ``hop_cases``: every lane-group size, float4
+    lanes up to 32 an edge (C = 128) and the wide path (C = 272)."""
+    rng = np.random.default_rng(C * 100 + Q)
+    ptr = hop_cases.skewed_ptr(rng, 300)
+    E = int(ptr[-1])
+    contrib = torch.from_numpy(rng.integers(0, 5, size=(Q, E, C)).astype(np.float32)).to(dev)
+    ptr_t = torch.from_numpy(ptr).to(dev)
+    n0 = HK.LAUNCHES["scatter_cols"]
+    out = HK.scatter_cols(contrib, ptr_t)
+    torch.cuda.synchronize()
+    assert HK.LAUNCHES["scatter_cols"] == n0 + 1
     assert torch.equal(out, HK.scatter_cols_plain(contrib, ptr_t))
 
 
