@@ -30,12 +30,16 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                the same function, where one exists.  ``ms`` (and plain_ms,
                library_ms) is the median of 10 CUDA-event timings, each of
                one call started on an idle card (``time_ms``: the host's
-               time to the launch included), on every kernel line.  A B1-B4
+               time to the launch included), on every kernel line.  Every
                line also gives, for the kernel, its plain version and the
                library call alike, ``*b2b_ms``, CUDA-event time per call over
-               10 calls launched back to back (``b2b_ms``), and
-               ``*device_ms``, the traced device time of a call
-               (``device_ms``).  B4, which no engine path reaches, is held on
+               10 calls launched back to back (``b2b_ms``), ``*device_ms``,
+               the traced device time of a call (``device_ms``), and
+               ``*device_mean_ms``, the same trace read so that dropped
+               device events do not lower it (``device_mean_ms``); and
+               ``turns_ms`` / ``library_turns_ms``, the kernel's and the
+               library call's single calls in 20 alternating pairs
+               (``time_ms_turns``).  B4, which no engine path reaches, is held on
                a main-path ETR delivery's edges.  Each B1-B3 line also names
                its call's shape: Q, V, E, C or B, whether the weights are
                shared across queries, the largest arrival degree, and the
@@ -47,20 +51,33 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                variant on the card against the port on the CPU; then the
                serve path, 8 prompts of 2048 tokens through ``prefill`` and 31
                greedy ``decode_step``s (32 tokens a sequence), with the
-               attention counter (B7) set to 0 just before and read just
-               after: it must read 34 x 32.  One traced prefill and decode
-               step.  impl='torch' is held against the run with teacher
-               forcing (it gets the run's tokens): logits within twice the
-               plain bf16 run's own distance from the model in float32, and
-               the same greedy token wherever the top-2 gap exceeds that.
-               The same model in float32 runs through the kernel's float32
-               instantiation and is held, teacher-forced, against
-               impl='torch' in float32 within 1e-3 of each step's max
-               |logit| (summation order is the only difference there).
-               Then B7 against its plain version on the calls of layer 0
-               (local) and layer 5 (global) of the prefill and of the last
-               decode step, in bf16 and cast to float32, timed as in
-               phase 6.
+               attention counters (B7) set to 0 just before and read just
+               after: they must read 34 x 32, the prefill's 34 through the
+               tensor-core kernel (route 'tc') and the 34 x 31 of decode
+               through the split-K kernel ('decode').  One traced prefill
+               and decode step.  impl='torch' is held against the run with
+               teacher forcing (it gets the run's tokens): logits within
+               twice the plain bf16 run's own distance from the model in
+               float32, and the same greedy token wherever the top-2 gap
+               exceeds that.  The same model in float32 runs through the
+               float32 routes (the prefill through the CUDA-core kernel,
+               'simt'; decode through the split-K kernel) and is held,
+               teacher-forced, against impl='torch' in float32 within 1e-3
+               of each step's max |logit| (summation order is the only
+               difference there).  Then B7 against its plain version on the
+               calls of layer 0 (local) and layer 5 (global) of the prefill
+               and of the last decode step, in bf16 and cast to float32,
+               timed as in phase 6 (B5-B8 lines: single call, back to back
+               and device for kernel, plain version and library call, and
+               the host's time of a wrapper call); each line is named by
+               the route it takes, the decode lines give their splits and
+               blocks (the global one must fill the card's SMs).  The
+               library call is SDPA with the call's mask, and where one call
+               without a mask tensor computes the same function (is_causal
+               on the global prefill; the visible keys sliced out in decode)
+               that form too: each is timed, and the faster in a single call
+               is the line's library call.  The global prefill also gives
+               the host's time to encode its three tensor maps.
   8. dlrm      DLRM-RM2 at full width (26 tables of 1,000,000 x 64 float32,
                random from SEED): SMOKE on the card against the CPU; then
                ``serve_score`` at batch 512 and 262,144 and
@@ -144,6 +161,8 @@ SOURCE = {
     **dict.fromkeys(("fused_hop_cols", "fused_hop_interval", "scatter_cols",
                      "scatter_extremum"), "src/repro_torch/csrc/hop_scatter.cu"),
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_tc": "src/repro_torch/csrc/flash_attention_sm90.cu",
+    "flash_attention_decode": "src/repro_torch/csrc/flash_decode.cu",
     "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
     "bucket_scatter": "src/repro_torch/csrc/bucket_scatter.cu",
     "interval_warp": "src/repro_torch/csrc/interval_warp.cu",
@@ -153,7 +172,8 @@ REPLACES = {
     "fused_hop_interval": "src/repro/kernels/hop_scatter/hop_scatter.py:243",
     "scatter_cols": "src/repro/kernels/hop_scatter/hop_scatter.py:293",
     "scatter_extremum": "src/repro/kernels/hop_scatter/hop_scatter.py:314",
-    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:72",
+    **dict.fromkeys(("flash_attention", "flash_attention_tc", "flash_attention_decode"),
+                    "src/repro/kernels/flash_attention/flash_attention.py:72"),
     "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:57",
     "bucket_scatter": "src/repro/kernels/bucket_scatter/bucket_scatter.py:37",
     "interval_warp": "src/repro/kernels/interval_warp/interval_warp.py:27",
@@ -205,6 +225,33 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def time_ms_turns(*fns, iters: int = 10, warmup: int = 2) -> list:
+    """``time_ms`` of each of ``fns`` (None skipped), timed in turns: every
+    round times one call of each, in order on even rounds and in reverse on
+    odd ones, so that drift in the host's or the card's state (single calls
+    of a few tens of microseconds are mostly host time) weighs on all alike.
+    For calls of like weight (a kernel and its library call): one much
+    heavier call leaves whatever follows it slower, and would split each
+    median between a cold and a warm half.  The medians, in order."""
+    live = [f for f in fns if f is not None]
+    for f in live:
+        for _ in range(warmup):
+            f()
+    torch.cuda.synchronize()
+    times = [[] for _ in live]
+    for r in range(iters):
+        for i in (range(len(live)) if r % 2 == 0 else reversed(range(len(live)))):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            live[i]()
+            b.record()
+            b.synchronize()
+            times[i].append(a.elapsed_time(b))
+    meds = iter(float(np.median(t)) for t in times)
+    return [None if f is None else next(meds) for f in fns]
+
+
 def b2b_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """CUDA-event time per call of ``fn`` over ``iters`` calls launched back
     to back after ``warmup`` calls: the stream's time a call, in which the
@@ -220,6 +267,22 @@ def b2b_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def host_us(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Median host microseconds of one call of ``fn``, timed without waiting
+    for the device (its work queues behind the calls before it): the
+    wrapper's Python, its checks and its launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
 
 
 def close(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float, what: str) -> float:
@@ -606,9 +669,10 @@ def _unique_rows(src: torch.Tensor, n_rows: int, needed: torch.Tensor) -> int:
     return int((u < n_rows).sum())
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10) -> float | None:
     """Device time of one call of ``fn``: the summed time of the kernels it
-    launches (torch.profiler), over ``iters`` calls, per call."""
+    launches (torch.profiler), over ``iters`` calls, per call.  None if the
+    trace kept no device event (a sum of nothing is not a reading)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -618,8 +682,75 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA) / 1e3 / iters
+    evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and ev.count]
+    if not evs:
+        log("device_ms: the trace kept no device event")
+        return None
+    return sum(ev.self_device_time_total for ev in evs) / 1e3 / iters
+
+
+def device_mean_ms(fn, iters: int = 10) -> float | None:
+    """Device time of one call of ``fn`` read so that dropped device events
+    do not lower it: for each kernel it launches, the mean time of its traced
+    launches times its launches a call (traced launches / iters, rounded, at
+    least 1), from the profiler's active cycle after a warm-up cycle of
+    ``iters`` calls.  Late in a long process a trace keeps fewer device events
+    than there were launches, and ``device_ms``'s sum then reads low.  None
+    if no device event was traced."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and ev.count]
+    if not evs:
+        log("device_mean_ms: the trace kept no device event")
+        return None
+    return sum(ev.self_device_time_total / ev.count * max(1, round(ev.count / iters))
+               for ev in evs) / 1e3
+
+
+TIMERS = (("ms", time_ms), ("b2b_ms", b2b_ms), ("device_ms", device_ms),
+          ("device_mean_ms", device_mean_ms))
+TURNS = 20
+
+
+def timings(kern, plain, libraries: dict) -> dict:
+    """A kernel line's times: for the kernel, its plain version and each
+    library call (``libraries``, {label: call}: single PyTorch calls that
+    compute the same function; may be empty), in that order, ``ms``
+    (``time_ms``), ``b2b_ms``, ``device_ms`` and ``device_mean_ms``.  With
+    several library calls each is kept under ``library_<label>_*`` and the
+    line's ``library_*`` is the one fastest in a single call; ``library_call``
+    names the call taken where it has a label other than "call".  Then ``turns_ms`` and ``library_turns_ms``: the
+    kernel's and that library call's single calls timed in ``TURNS``
+    alternating pairs (``time_ms_turns``)."""
+    t = {}
+    for who, fn in (("", kern), ("plain_", plain),
+                    *((f"library_{label}_", f) for label, f in libraries.items())):
+        for how, timer in TIMERS:
+            t[who + how] = timer(fn)
+    best = min(libraries, key=lambda label: t[f"library_{label}_ms"]) if libraries else None
+    for how, _ in TIMERS:
+        key = f"library_{best}_{how}"
+        t["library_" + how] = (t.pop(key) if len(libraries) == 1 else t[key]) if best else None
+    if best not in (None, "call"):
+        t["library_call"] = best
+    t["turns_ms"], t["library_turns_ms"] = time_ms_turns(
+        kern, libraries[best] if best else None, iters=TURNS)
+    return t
+
+
+def fmt_times(t: dict) -> str:
+    return " ".join(f"{k}={v if v is None or isinstance(v, str) else round(v, 4)}"
+                    for k, v in t.items())
 
 
 def phase_kernels(recorder: Recorder, launches: dict) -> list:
@@ -628,8 +759,8 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
     entries = []
 
     def entry(name, variant, kern, plain, library, nbytes, flops, shape=None):
-        """One B1-B4 line: ``ms``, ``plain_ms`` and ``library_ms`` are
-        ``time_ms``; ``*b2b_ms`` and ``*device_ms`` beside them."""
+        """One B1-B4 line, timed by ``timings`` (``library``: one call or
+        None)."""
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -641,19 +772,15 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
             err["max_abs_err"] = max(err["max_abs_err"], e["max_abs_err"])
             err["n_ge_2_24"] += e["n_ge_2_24"]
         del got, want
-        times = {}
-        for who, fn in (("", kern), ("plain_", plain), ("library_", library)):
-            for how, timer in (("ms", time_ms), ("b2b_ms", b2b_ms), ("device_ms", device_ms)):
-                times[who + how] = timer(fn) if fn is not None else None
+        times = timings(kern, plain, {} if library is None else {"call": library})
         b_ms, b_by = bound(nbytes, flops)
         e = dict(name=f"{name}[{variant}]", route="cuda", source=SOURCE[name],
                  replaces=REPLACES[name], launches=launches[name],
                  max_abs_err=err["max_abs_err"], **times, bound_ms=b_ms, bound_by=b_by,
                  n_ge_2_24=err["n_ge_2_24"], bytes=nbytes, flops=flops, shape=shape)
         entries.append(e)
-        log(f"kernels: {e['name']:34s} "
-            + " ".join(f"{k}={v if v is None else round(v, 4)}" for k, v in times.items())
-            + f" bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err['max_abs_err']} "
+        log(f"kernels: {e['name']:34s} {fmt_times(times)}"
+            f" bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err['max_abs_err']} "
             f"n>=2^24={err['n_ge_2_24']} launches={launches[name]}"
             + "".join(f" {k}={v}" for k, v in (shape or {}).items()))
         torch.cuda.empty_cache()
@@ -694,6 +821,28 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
                 library = lambda A=A, X=X: torch.sparse.mm(A, X)
                 compare(library().t(), HK.fused_hop_cols(*a, **kw)[0][:, :, 0],
                         "library sparse.mm vs fused_hop_cols")
+            elif mch is None:
+                # per-column weights: one sparse matrix a column (and query,
+                # where the weights are per query), so one batched product,
+                # torch.bmm of a [qw·C, V, N] sparse COO batch, computes the hop
+                keep = src < N
+                rows = HK.segment_ids(ptr, E)[keep]
+                cols = src[keep].long()
+                nb, nk = qw * C, rows.numel()
+                idx = torch.stack([torch.arange(nb, device=src.device).repeat_interleave(nk),
+                                   rows.repeat(nb), cols.repeat(nb)])
+                vals = w[:qw, keep, :].permute(0, 2, 1).reshape(-1)
+                A = torch.sparse_coo_tensor(idx, vals, (nb, V, N)).coalesce()
+                del idx, vals, rows, cols, keep
+                if qw == 1:                       # [C, N, Q]: the queries as columns
+                    X = state.permute(2, 1, 0).contiguous()
+                    back = lambda y: y.permute(2, 1, 0)
+                else:                             # [Q·C, N, 1]
+                    X = state.permute(0, 2, 1).reshape(nb, N, 1).contiguous()
+                    back = lambda y, Qn=Qn, C=C, V=V: y.reshape(Qn, C, V).permute(0, 2, 1)
+                library = lambda A=A, X=X: torch.bmm(A, X)
+                compare(back(library()), HK.fused_hop_cols(*a, **kw)[0],
+                        "library bmm vs fused_hop_cols")
             variant = f"C={C}" + (",extremum" if mch is not None else "")
             vec = HK.cols_vector_width(C, mch is not None, (state, HK.query_stride(state, "state")),
                                        (w, HK.query_stride(w, "w")))
@@ -801,27 +950,33 @@ def model_entry(name: str, variant: str, kern, plain, library, nbytes: float,
                 flops: float, flop_rate: float, atol: float, rtol: float,
                 launches: int, library_tol: float | None = None) -> dict:
     """One kernel line: the kernel against its plain version on the same
-    inputs (atol, rtol), then CUDA-event medians of the kernel, the plain
-    version and the library call beside the bound.  The library call is a
-    yardstick, checked only to compute the same function: atol = rtol =
-    ``library_tol`` (default: the kernel's own)."""
+    inputs (atol, rtol), then the kernel, the plain version and the library
+    call timed by ``timings`` beside the bound, and the host's time of a call
+    of the kernel's wrapper and of the library call (``host_us``).
+    ``library`` is one PyTorch call that computes the same function, None,
+    or {label: call} of several such calls (the line's ``library_*`` is then
+    the fastest).  A library call is a yardstick, checked only to compute
+    the same function: atol = rtol = ``library_tol`` (default: the kernel's
+    own)."""
+    libraries = library if isinstance(library, dict) else \
+        {} if library is None else {"call": library}
     got, want = kern(), plain()
     torch.cuda.synchronize()
     err = close(got.float(), want.float(), atol, rtol, f"kernel {name}[{variant}]")
-    if library is not None:
-        lt = (atol, rtol) if library_tol is None else (library_tol, library_tol)
-        close(library().float(), want.float(), *lt, f"library for {name}[{variant}]")
+    lt = (atol, rtol) if library_tol is None else (library_tol, library_tol)
+    for label, fn in libraries.items():
+        close(fn().float(), want.float(), *lt, f"library {label} for {name}[{variant}]")
     del got, want
-    ms, plain_ms = time_ms(kern), time_ms(plain)
-    library_ms = time_ms(library) if library is not None else None
+    times = timings(kern, plain, libraries)
+    times["host_us"] = host_us(kern)
+    best = times.get("library_call", next(iter(libraries), None))
+    times["library_host_us"] = host_us(libraries[best]) if libraries else None
     b_ms, b_by = bound(nbytes, flops, flop_rate)
     e = dict(name=f"{name}[{variant}]", route="cuda", source=SOURCE[name],
-             replaces=REPLACES[name], launches=launches, max_abs_err=err, ms=ms,
-             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-             bytes=nbytes, flops=flops, atol=atol, rtol=rtol)
-    log(f"kernels: {e['name']:34s} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
-        f"bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err} launches={launches}")
+             replaces=REPLACES[name], launches=launches, max_abs_err=err, **times,
+             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops, atol=atol, rtol=rtol)
+    log(f"kernels: {e['name']:34s} {fmt_times(times)}"
+        f" bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err} launches={launches}")
     free_memory()
     return e
 
@@ -875,18 +1030,50 @@ def attention_work(q, k, kw) -> tuple:
     return nbytes, pairs
 
 
-def attention_library(q, k, v, kw):
-    """``F.scaled_dot_product_attention`` (GQA, the same masks) as a
-    yardstick; the port never calls it."""
+def attention_library(q, k, v, kw) -> dict:
+    """``F.scaled_dot_product_attention`` (GQA) as a yardstick, which the port
+    never calls: {"sdpa_mask": SDPA with the call's mask as a tensor}, and,
+    where one call without a mask tensor computes the same function,
+    "sdpa_nomask": ``is_causal`` where the causal bound is the diagonal (no
+    window, Sq = Sk, no offset), or the keys' visible run sliced out where
+    every query row sees the same run (one row, as in decode)."""
     import torch.nn.functional as F
 
     Sq, Sk = q.shape[2], k.shape[2]
-    qpos = torch.arange(Sq, device=q.device)[:, None] + kw.get("q_offset", 0)
+    off, window = kw.get("q_offset", 0), kw.get("window")
+    qpos = torch.arange(Sq, device=q.device)[:, None] + off
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = kpos <= qpos
-    if kw.get("window") is not None:
-        mask &= kpos > qpos - kw["window"]
-    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    if window is not None:
+        mask &= kpos > qpos - window
+    forms = {"sdpa_mask": lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)}
+    if window is None and Sq == Sk and off == 0:
+        forms["sdpa_nomask"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    elif Sq == 1:
+        lo, hi = max(0, off - window + 1) if window is not None else 0, min(Sk, off + 1)
+        ks, vs = k[:, :, lo:hi], v[:, :, lo:hi]
+        forms["sdpa_nomask"] = lambda: F.scaled_dot_product_attention(
+            q, ks, vs, enable_gqa=True)
+    return forms
+
+
+def tc_encode_us(q, k, v, kw, iters: int = 1000) -> float:
+    """Host microseconds to encode the three TMA tensor maps (q, k, v) of
+    this call of the 'tc' route, by the code its C entry point runs for
+    them (``flash_attention_tc_encode_ns``), the mean of ``iters``."""
+    from repro_torch.kernels import build
+
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    ns = build.load("flash_attention_sm90").flash_attention_tc_encode_ns(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], B, Hq, Hkv, Sq, Sk, D, int(kw.get("causal", True)),
+        int(kw.get("q_offset", 0)), iters)
+    if ns < 0:
+        raise AssertionError("lm: cuTensorMapEncodeTiled refused a map of the global prefill")
+    return ns / 1e3
 
 
 def lm_smoke_check() -> dict:
@@ -960,6 +1147,7 @@ def phase_lm() -> tuple:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = FA.LAUNCHES["flash_attention"]   # read just after
+    serve_routes = {r: FA.LAUNCHES["flash_attention_" + r] for r in FA.ROUTES}
     peak = torch.cuda.max_memory_allocated()
     info.update(prefill_ms=(t1 - t0) * 1e3, decode_ms_per_token=(t2 - t1) * 1e3 / (LM_TOKENS - 1),
                 resident_bytes=resident, peak_bytes=peak, launches=launches,
@@ -972,6 +1160,13 @@ def phase_lm() -> tuple:
     want = cfg.n_layers * LM_TOKENS
     if launches != want:
         raise AssertionError(f"lm: B7 launched {launches} times on the serve path, want {want}")
+    # the prefill's 34 through the tensor-core kernel, the 31 decode steps'
+    # through the split-K kernel, none through the CUDA-core kernel
+    want_routes = dict(tc=cfg.n_layers, decode=cfg.n_layers * (LM_TOKENS - 1), simt=0)
+    if serve_routes != want_routes:
+        raise AssertionError(f"lm: B7 routes on the serve path {serve_routes}, want {want_routes}")
+    info["launches_by_route"] = serve_routes
+    log(f"lm: B7 launches by route on the serve path: {serve_routes}")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("lm: non-finite logits")
 
@@ -1001,6 +1196,7 @@ def phase_lm() -> tuple:
     steps, near_ties, near_ties32 = [], 0, 0
     ref_cache = f32_cache = c32_cache = None
     launches32 = FA.LAUNCHES["flash_attention"]
+    routes32 = {r: FA.LAUNCHES["flash_attention_" + r] for r in FA.ROUTES}
     for i in range(LM_TOKENS):
         if i == 0:
             ref, ref_cache = TR.prefill(plain, params, prompts, max_len)
@@ -1040,10 +1236,17 @@ def phase_lm() -> tuple:
                                  f"run's top-1/top-2 gap exceeds {2 * own}")
         near_ties += int((~decided).sum())
     launches32 = FA.LAUNCHES["flash_attention"] - launches32
+    routes32 = {r: FA.LAUNCHES["flash_attention_" + r] - routes32[r] for r in FA.ROUTES}
     del ref_cache, f32_cache, c32_cache, ref, r32, c32, params32
     if launches32 != cfg.n_layers * LM_TOKENS:
         raise AssertionError(f"lm: the float32 run launched B7 {launches32} times, "
                              f"want {cfg.n_layers * LM_TOKENS}")
+    # float32: the prefill through the CUDA-core kernel's float32
+    # instantiation, decode through the split-K kernel's
+    want32 = dict(tc=0, decode=cfg.n_layers * (LM_TOKENS - 1), simt=cfg.n_layers)
+    if routes32 != want32:
+        raise AssertionError(f"lm: B7 routes of the float32 run {routes32}, want {want32}")
+    info["f32_launches_by_route"] = routes32
     worst = max(steps, key=lambda st: st["err"] / st["bound"])
     worst32 = max(steps, key=lambda st: st["f32_err"] / st["f32_bound"])
     info.update(teacher_forced=steps, tokens_within_bound_of_a_tie=near_ties,
@@ -1063,7 +1266,7 @@ def phase_lm() -> tuple:
         f"teacher forcing: max |logit diff| {info['f32_max_abs_logit_err']:.4g}, at most "
         f"{info['f32_max_err_over_max_logit']:.4g} of the step's max |logit| (bound 1e-3); "
         f"greedy tokens agree where the gap exceeds it; {near_ties32} of "
-        f"{LM_TOKENS * LM_BATCH} tokens fall within it")
+        f"{LM_TOKENS * LM_BATCH} tokens fall within it; routes {routes32}")
     free_memory()
 
     # B7 on the main path's calls: the prefill's layers 0 and 5, the last decode step's
@@ -1079,22 +1282,50 @@ def phase_lm() -> tuple:
     del params
     free_memory()
     # bf16: kernel and plain version both sum in float32 and round the output
-    # once, so they may differ by one bf16 rounding: atol 1e-3, rtol 2^-7.
-    # float32: the main path's operands cast up, through the kernel's float32
-    # instantiation, at the float32 tolerance 2e-5.  The library (SDPA) rounds
-    # p to bf16 before p @ v, so it is checked at 2e-2 (bf16) and 1e-4 (f32).
-    for dtype, tag, tol, lib_tol, rate in (
-            (torch.bfloat16, "", (1e-3, 2.0 ** -7), 2e-2, BF16_FLOP_PER_S),
-            (torch.float32, ",f32", (2e-5, 2e-5), 1e-4, F32_FLOP_PER_S)):
+    # once, so they may differ by one bf16 rounding: atol 1e-3, rtol 2^-7
+    # (the tensor-core kernel also rounds p to bf16 before p @ v, which moves
+    # each term by at most 2^-9 of its weight).  float32: the main path's
+    # operands cast up, through the float32 routes, at the float32 tolerance
+    # 2e-5.  The library (SDPA) rounds p to bf16 before p @ v, so it is
+    # checked at 2e-2 (bf16) and 1e-4 (f32).  Each line is named by the route
+    # its call takes (FA.attention_route) and counts that route's launches
+    # in the run it belongs to: the bf16 serve path, or the float32 run.
+    kernel_of = {"tc": "flash_attention_tc", "decode": "flash_attention_decode",
+                 "simt": "flash_attention"}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, tag, tol, lib_tol, rate, counts in (
+            (torch.bfloat16, "", (1e-3, 2.0 ** -7), 2e-2, BF16_FLOP_PER_S, serve_routes),
+            (torch.float32, ",f32", (2e-5, 2e-5), 1e-4, F32_FLOP_PER_S, routes32)):
         for variant, ops in calls.items():
             q, k, v = (t.to(dtype) for t in ops[:3])
             kw = ops[3]
             nbytes, pairs = attention_work(q, k, kw)
-            D = q.shape[-1]
-            entries.append(model_entry(
-                "flash_attention", variant + tag, lambda: FA.flash_attention(q, k, v, **kw),
+            B, Hq, Sq, D = q.shape
+            Hkv = k.shape[1]
+            route = FA.attention_route(dtype, D, Sq, Hq // Hkv)
+            e = model_entry(
+                kernel_of[route], variant + tag, lambda: FA.flash_attention(q, k, v, **kw),
                 lambda: FA.attention_plain(q, k, v, **kw), attention_library(q, k, v, kw),
-                nbytes, 4.0 * D * pairs, rate, *tol, launches, library_tol=lib_tol))
+                nbytes, 4.0 * D * pairs, rate, *tol, counts[route], library_tol=lib_tol)
+            e["kernel_route"] = route
+            if route == "decode":
+                lo, hi = FA.visible_rows(Sq, k.shape[2], True, kw.get("window"),
+                                         kw.get("q_offset", 0))
+                splits, chunk = FA.decode_splits(B, Hkv, hi - lo, sms)
+                e.update(visible_rows=hi - lo, splits=splits, chunk=chunk,
+                         blocks=B * Hkv * splits)
+                log(f"kernels: {e['name']} walks {hi - lo} rows in {splits} splits of "
+                    f"{chunk}: {B * Hkv * splits} blocks on {sms} SMs")
+                if variant == "decode,global" and B * Hkv * splits < sms:
+                    raise AssertionError(f"lm: the global decode launches {B * Hkv * splits} "
+                                         f"blocks, fewer than the card's {sms} SMs")
+            if route == "tc" and variant == "prefill,global":
+                # the three tensor maps this call's wrapper encodes (q, k, v),
+                # by the code the kernel's entry point runs, 1,000 times
+                e["tensor_map_encode_us"] = tc_encode_us(q, k, v, kw)
+                log(f"kernels: {e['name']} encoding its 3 tensor maps (q, k, v) takes "
+                    f"{e['tensor_map_encode_us']:.3f} us on the host (mean of 1,000)")
+            entries.append(e)
             del q, k, v
     del calls, cache
     free_memory()
@@ -1433,6 +1664,7 @@ def phase_gnn() -> tuple:
 
 def main(argv=None) -> int:
     warnings.filterwarnings("ignore", message="Sparse")
+    warnings.filterwarnings("ignore", message="Warning: Profiler clears events")
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=str(ROOT / "build" / "chip_smoke.json"),
                     help="where the full JSON report is written")

@@ -1,8 +1,12 @@
-// Hopper kernel of GQA attention: causal mask, sliding window, q_offset.
+// Hopper kernel of GQA attention on the CUDA cores: causal mask, sliding
+// window, q_offset.
 //
 // Replaces flash_attention_pallas (B7) of the reference package
-// (src/repro/kernels/flash_attention/flash_attention.py), the kernel under
-// every attention call of the LM's prefill and decode.
+// (src/repro/kernels/flash_attention/flash_attention.py) on the calls that
+// ops.attention_route sends here: more than 16 query rows per kv head in
+// float32 (the LM's float32 check), or in bfloat16 at d_head 16 or 32 (the
+// widths the tensor-core kernel, flash_attention_sm90.cu, does not take).
+// Decode goes to flash_decode.cu.
 //
 // What it computes: for query head h of batch b, row i at absolute position
 // pos = q_offset + i, the softmax over the keys j of kv head h / (Hq / Hkv)
@@ -12,24 +16,21 @@
 // output is acc / max(l, 1e-30) in the input type.  A row that sees no key
 // gives 0.
 //
-// What bounds it on an H100: prefill is operations (4 * D flops per visible
-// query-key pair, e.g. 3.7 TFLOP for one gemma3-4b prefill of 8 x 2048
-// tokens, against 34 x 0.13 GB of q, k, v and output); decode (one query
-// row against up to 2080 cached rows) is bytes.  This first kernel does the
-// products on the CUDA cores in float32, so its ceiling is the float32 rate
-// (67 TFLOP/s), not the bf16 tensor-core rate the bound is stated against;
-// wgmma and TMA are later work.
+// What bounds it on an H100: operations (4 * D flops per visible query-key
+// pair).  In float32 there is no tensor-core route that keeps the LM's
+// float32 check within its bound (TF32 keeps about three digits), so the
+// products run on the CUDA cores, whose float32 rate (67 TFLOP/s) is the
+// ceiling.
 //
-// Design, kept simple on purpose (a right kernel first):
-//   * One block of 16 x 16 threads per (q tile of BQ rows, q head, batch);
-//     BQ = 64, or 16 when Sq <= 16 (decode).  The Pallas kernel stages the
-//     whole K/V sequence in VMEM; here K and V pass through shared memory
-//     64 rows at a time (a loop inside the block takes the place of the
-//     TPU's sequential walk), in the input type, with the q tile kept in
-//     shared memory as float32 pre-multiplied by scale, as Pallas does.
-//     At D = 256 the q tile, a K and a V tile and the 64 x 64 P tile take
-//     148 KB in bf16 (217 KB in float32): dynamic shared memory, above the
-//     48 KB static limit, with cudaFuncSetAttribute.
+// Design, kept simple on purpose:
+//   * One block of 16 x 16 threads per (q tile of 64 rows, q head, batch).
+//     The Pallas kernel stages the whole K/V sequence in VMEM; here K and V
+//     pass through shared memory 64 rows at a time (a loop inside the block
+//     takes the place of the TPU's sequential walk), in the input type, with
+//     the q tile kept in shared memory as float32 pre-multiplied by scale,
+//     as Pallas does.  At D = 256 the q tile, a K and a V tile and the
+//     64 x 64 P tile take 217 KB in float32: dynamic shared memory, above
+//     the 48 KB static limit, with cudaFuncSetAttribute.
 //   * S = q k^T: thread (ty, tx) owns query rows ty + 16 i and key columns
 //     tx + 16 j; K rows are padded by 16 bytes so the 16-byte reads of 16
 //     neighbouring rows fall on distinct banks.  The row max and row sum
@@ -42,18 +43,13 @@
 //     so each 16-byte read of a V row is conflict-free.
 //   * Key tiles that the causal bound or the window mask for every row of
 //     the block are skipped: the same function with less work (a fully
-//     masked tile leaves (m, l, acc) exactly as they were), and decode reads
-//     only the first cache_len rows of the cache.  Rows past Sq or Sk are
-//     bound-checked; nothing is padded by copying.
+//     masked tile leaves (m, l, acc) exactly as they were).  Rows past Sq or
+//     Sk are bound-checked; nothing is padded by copying.
 //   * Query tiles run latest first, so the heaviest causal tiles start
 //     early.  Strides are arguments (the last axis is contiguous), so q, k,
 //     v may be views of [B, S, H, D] projections or of a [L, B, H, S, D]
 //     cache.  Launches on the given stream, allocates nothing, does not
 //     synchronise, returns cudaGetLastError().
-//
-// Not done yet (later work): wgmma on bf16 tiles, cp.async/TMA double
-// buffering of K/V, the q heads of one kv head in one block, and split-K for
-// decode, whose grid of B * Hq blocks leaves most SMs idle.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -62,6 +58,7 @@ namespace {
 constexpr int kTX = 16;
 constexpr int kTY = 16;
 constexpr int kThreads = kTX * kTY;
+constexpr int kBQ = 64;          // query rows per tile
 constexpr int kBK = 64;          // key rows per tile
 constexpr float kNegInf = -1e30f;
 
@@ -126,16 +123,16 @@ __device__ __forceinline__ int out_col(int tx, int c) {
   else return tx * DC + c;
 }
 
-template <typename T, int BQ, int D>
+template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * BQ * (D + 4) + 2 * sizeof(T) * kBK * (D + 16 / sizeof(T)) +
-         sizeof(float) * BQ * (kBK + 4);
+  return sizeof(float) * kBQ * (D + 4) + 2 * sizeof(T) * kBK * (D + 16 / sizeof(T)) +
+         sizeof(float) * kBQ * (kBK + 4);
 }
 
 // ------------------------------------------------------------- the kernel
-template <typename T, int BQ, int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
-  constexpr int RQ = BQ / kTY;               // query rows per thread
+  constexpr int RQ = kBQ / kTY;              // query rows per thread
   constexpr int KC = kBK / kTX;              // key columns per thread in S
   constexpr int DC = D / kTX;                // output columns per thread
   constexpr int CH = D / 8;                  // 8-element chunks per row
@@ -145,21 +142,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
-  T* sK = reinterpret_cast<T*>(sQ + BQ * QS);
+  T* sK = reinterpret_cast<T*>(sQ + kBQ * QS);
   T* sV = sK + kBK * KS;
   float* sP = reinterpret_cast<float*>(sV + kBK * KS);
 
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kTX + tx;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.Hq / p.Hkv);
-  const int nq = min(BQ, p.Sq - q0);
+  const int nq = min(kBQ, p.Sq - q0);
   const T* Q = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
   const T* K = static_cast<const T*>(p.k) + b * p.ksb + kvh * p.ksh;
   const T* V = static_cast<const T*>(p.v) + b * p.vsb + kvh * p.vsh;
   T* O = static_cast<T*>(p.o) + b * p.osb + h * p.osh;
 
-  for (int i = tid; i < BQ * CH; i += kThreads) {
+  for (int i = tid; i < kBQ * CH; i += kThreads) {
     const int r = i / CH, c = (i % CH) * 8;
     float f[8];
     if (r < nq) {
@@ -305,32 +302,30 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Params p) {
   }
 }
 
-template <typename T, int BQ, int D>
+template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, BQ, D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, BQ, D>,
+  constexpr size_t smem = smem_bytes<T, D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B), block(kTX, kTY);
-  flash_fwd<T, BQ, D><<<grid, block, smem, stream>>>(p);
+  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.Hq, p.B), block(kTX, kTY);
+  flash_fwd<T, D><<<grid, block, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int BQ>
-cudaError_t by_width(const Params& p, int D, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, BQ, 16>(p, stream);
-    case 32: return launch<T, BQ, 32>(p, stream);
-    case 64: return launch<T, BQ, 64>(p, stream);
-    case 128: return launch<T, BQ, 128>(p, stream);
-    case 256: return launch<T, BQ, 256>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
+// float32 at every width; bfloat16 only at 16 and 32 (wider bf16 goes to
+// the tensor-core kernel)
 template <typename T>
-cudaError_t by_tile(const Params& p, int D, cudaStream_t stream) {
-  return p.Sq <= 16 ? by_width<T, 16>(p, D, stream) : by_width<T, 64>(p, D, stream);
+cudaError_t by_width(const Params& p, int D, cudaStream_t stream) {
+  constexpr bool all = sizeof(T) == 4;
+  switch (D) {
+    case 16: return launch<T, 16>(p, stream);
+    case 32: return launch<T, 32>(p, stream);
+    case 64: if constexpr (all) return launch<T, 64>(p, stream); break;
+    case 128: if constexpr (all) return launch<T, 128>(p, stream); break;
+    case 256: if constexpr (all) return launch<T, 256>(p, stream); break;
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -339,8 +334,8 @@ extern "C" {
 
 // q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D], o [B, Hq, Sq, D], each given by
 // its base pointer and its batch, head and row strides in elements (the last
-// axis contiguous, rows 16-byte aligned).  is_bf16 selects bfloat16 over
-// float32 for all four.  window <= 0 means no window.
+// axis contiguous, rows 16-byte aligned).  is_bf16 selects bfloat16 (D 16 or
+// 32) over float32 (D 16 to 256) for all four.  window <= 0 means no window.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long qsb, long long qsh, long long qss,
                         long long ksb, long long ksh, long long kss,
@@ -352,7 +347,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const Params p{q, k, v, o, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
                  B, Hq, Hkv, Sq, Sk, scale, causal, window, q_offset};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? by_tile<__nv_bfloat16>(p, D, st) : by_tile<float>(p, D, st);
+  return is_bf16 ? by_width<__nv_bfloat16>(p, D, st) : by_width<float>(p, D, st);
 }
 
 }  // extern "C"

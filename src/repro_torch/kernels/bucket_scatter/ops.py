@@ -9,7 +9,15 @@ the CSR row pointer of ``seg_ids``.
 ``impl='torch'`` runs the plain version (``ref.bucket_scatter_plain``) on
 any device.  ``impl='cuda'`` on CPU tensors also runs the plain version; on
 CUDA tensors it launches ``csrc/bucket_scatter.cu`` or raises.  ``LAUNCHES``
-counts kernel launches.
+counts kernel launches.  The lanes a segment of the kernel's narrow path (C
+<= 8) are ``common.lane_group`` of the edges, one lane an edge, as for B1
+and B3; ``ref.bucket_scatter_lanes_plain`` writes out that path's order of
+summation.
+
+The wrapper runs once per aggregation of every GNN layer, and at C <= 3 its
+kernel takes a few microseconds, so the host's share counts: the layout's
+pointer is proven once, when the ``ScatterLayout`` is made, and the C entry
+point is looked up once.
 """
 from __future__ import annotations
 
@@ -19,11 +27,12 @@ from typing import Optional
 import torch
 
 from .. import build
-from ..common import check_impl
+from ..common import check_impl, lane_group
 from .ref import bucket_scatter_plain
 
 LAUNCHES = {"bucket_scatter": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FWD: list = []
 
 
 def reset_launches() -> None:
@@ -34,10 +43,22 @@ def reset_launches() -> None:
 @dataclasses.dataclass(frozen=True)
 class ScatterLayout:
     """The CSR row pointer of a sorted ``seg_ids``: segment v is the run of
-    edges ``ptr[v]:ptr[v+1]``."""
+    edges ``ptr[v]:ptr[v+1]``.  Its form (int64, contiguous, ``num_segments
+    + 1`` entries) is checked here, once, not at every launch, and the
+    narrow path's lanes a segment (``common.lane_group``, one lane an edge)
+    are worked out here."""
     ptr: torch.Tensor        # int64 [num_segments + 1], on the edges' device
     n_edges: int
     num_segments: int
+    lanes: int = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        p = self.ptr
+        if p.dtype != torch.int64 or tuple(p.shape) != (self.num_segments + 1,) \
+                or not p.is_contiguous():
+            raise ValueError(f"ptr must be a contiguous int64 [{self.num_segments + 1}] "
+                             f"tensor, got {p.dtype} {tuple(p.shape)}")
+        object.__setattr__(self, "lanes", lane_group(self.n_edges, self.num_segments, 1))
 
 
 def build_layout(seg_ids: torch.Tensor, num_segments: int) -> ScatterLayout:
@@ -63,23 +84,23 @@ def bucket_scatter(contrib: torch.Tensor, seg_ids: torch.Tensor, num_segments: i
     same edges."""
     if check_impl(impl) == "torch" or not contrib.is_cuda:
         return bucket_scatter_plain(contrib, seg_ids, num_segments)
-    dev = contrib.device
-    if contrib.dtype not in _DTYPES or contrib.dim() != 2 or not contrib.is_contiguous():
+    dtype = _DTYPES.get(contrib.dtype)
+    if dtype is None or contrib.dim() != 2 or not contrib.is_contiguous():
         raise ValueError("contrib must be a contiguous float32 or bfloat16 [E, C] tensor")
     if layout is None:
         layout = build_layout(seg_ids, num_segments)
     E, C = contrib.shape
     ptr = layout.ptr
-    if (layout.n_edges != E or layout.num_segments != num_segments or ptr.device != dev
-            or ptr.dtype != torch.int64 or ptr.shape != (num_segments + 1,)):
+    dev = contrib.get_device()
+    if layout.n_edges != E or layout.num_segments != num_segments or ptr.get_device() != dev:
         raise ValueError(f"layout is for {layout.n_edges} edges into {layout.num_segments} "
-                         f"segments on {ptr.device}; contrib has {E} edges on {dev}")
-    out = torch.empty((num_segments, C), dtype=contrib.dtype, device=dev)
+                         f"segments on {ptr.device}; contrib has {E} edges on {contrib.device}")
+    out = torch.empty((num_segments, C), dtype=contrib.dtype, device=contrib.device)
     if num_segments and C:
-        lib = build.load("bucket_scatter")
-        err = lib.bucket_scatter_fwd(contrib.data_ptr(), _DTYPES[contrib.dtype], C,
-                                     ptr.data_ptr(), num_segments, out.data_ptr(),
-                                     torch.cuda.current_stream(dev).cuda_stream)
+        if not _FWD:
+            _FWD.append(build.load("bucket_scatter").bucket_scatter_fwd)
+        err = _FWD[0](contrib.data_ptr(), dtype, C, ptr.data_ptr(), num_segments, layout.lanes,
+                      out.data_ptr(), torch._C._cuda_getCurrentRawStream(dev))
         build.check(err, "bucket_scatter_fwd")
         LAUNCHES["bucket_scatter"] += 1
     return out

@@ -44,11 +44,22 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                 _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                                 _I, _P),
     },
+    "flash_attention_sm90": {
+        "flash_attention_tc_fwd": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                   _L, _L, _L, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+        "flash_attention_tc_encode_ns": (_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                         _I, _I, _I, _I, _I, _I, _I, _I, _I),
+    },
+    "flash_decode": {
+        "flash_decode_fwd": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                             _L, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                             _I, _P, _P),
+    },
     "embedding_bag": {
         "embedding_bag_fwd": (_P, _L, _I, _P, _L, _I, _I, _P, _P),
     },
     "bucket_scatter": {
-        "bucket_scatter_fwd": (_P, _I, _L, _P, _L, _P, _P),
+        "bucket_scatter_fwd": (_P, _I, _L, _P, _L, _I, _P, _P),
     },
     "interval_warp": {
         "interval_warp_fwd": (_P, _I, _P, _P, _L, _I, _P, _P),

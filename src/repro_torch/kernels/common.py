@@ -22,6 +22,7 @@ from typing import Optional, Union
 import torch
 
 IMPLS = ("torch", "cuda")
+WARP = 32
 
 
 def check_impl(impl: str) -> str:
@@ -42,3 +43,20 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run on the CPU explicitly")
     return dev
+
+
+def lane_group(n_edges: int, n_dst: int, lanes: int) -> int:
+    """Edge slots per destination (segment) of the narrow-row kernels B1, B3
+    and B5, for an edge that takes ``lanes`` lanes (C / vector width, a power
+    of two <= 32; B5 takes 1): the largest power of two G not above half the
+    mean arrival degree E / V, between 1 and 32 / lanes, so that the G *
+    lanes lanes of a destination fit in a warp and one of typical degree is
+    done in about two steps.  Known on the host from the shapes, with no
+    device sync; 1 where the kernel has no narrow path (``lanes`` not a
+    power of two <= 32)."""
+    if lanes < 1 or lanes > WARP or WARP % lanes:
+        return 1
+    g = 1
+    while 2 * g * lanes <= WARP and 4 * g * n_dst <= n_edges:
+        g *= 2
+    return g

@@ -27,7 +27,7 @@ launches by wrapper name.  The sources say which TPU kernel each replaces and
 what bounds it on the card.  B1's and B3's launch choices are pure functions
 of the shapes and alignments, made on the host without a device sync:
 ``cols_vector_width`` / ``vector_width`` (columns a lane loads) and
-``lane_group`` (edge slots a destination).
+``lane_group`` (edge slots a destination, from ``common``, which B5 shares).
 """
 from __future__ import annotations
 
@@ -36,10 +36,10 @@ from typing import Optional, Tuple
 import torch
 
 from .. import build
+from ..common import WARP, lane_group  # noqa: F401  (lane_group: B1/B3's edge slots)
 
 LAUNCHES = {"fused_hop_cols": 0, "fused_hop_interval": 0, "scatter_cols": 0,
             "scatter_extremum": 0}
-WARP = 32
 SECTOR_FLOATS = 8   # floats in a 32-byte sector
 VEC = 4             # floats in a float4
 
@@ -197,22 +197,6 @@ def cols_vector_width(C: int, extremum: bool, *rows: Tuple[torch.Tensor, int]) -
     if extremum and C < SECTOR_FLOATS:
         return 1
     return vector_width(C, *rows)
-
-
-def lane_group(n_edges: int, n_dst: int, lanes: int) -> int:
-    """Edge slots per destination of the narrow-row kernels, for an edge
-    that takes ``lanes`` lanes (C / vector width, a power of two <= 32): the
-    largest power of two G not above half the mean arrival degree E / V,
-    between 1 and 32 / lanes, so that the G * lanes lanes of a destination
-    fit in a warp and one of typical degree is done in about two steps.
-    Known on the host from the shapes, with no device sync; 1 where the
-    kernel has no narrow path (``lanes`` not a power of two <= 32)."""
-    if lanes < 1 or lanes > WARP or WARP % lanes:
-        return 1
-    g = 1
-    while 2 * g * lanes <= WARP and 4 * g * n_dst <= n_edges:
-        g *= 2
-    return g
 
 
 def _source_table(state, sq, mch):

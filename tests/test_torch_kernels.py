@@ -14,7 +14,9 @@ order's rounding error is at most 7 units of 2^-24 of the sum).
 Attention: atol = rtol = 2e-5 in float32 (the tolerance of
 ``tests/test_kernels.py``'s sweep); in bf16 atol 1e-3 and rtol 2^-7, one
 bf16 rounding of the output, tighter than that sweep's 2e-2, since kernel and
-plain version both sum in float32.  EmbeddingBag: atol 1e-5.  Segment-sum
+plain version both sum in float32 (the tensor-core route also rounds p to
+bf16 before P V, which moves each term by at most 2^-9 of its weight).
+Each attention test also checks which of the three routes launched.  EmbeddingBag: atol 1e-5.  Segment-sum
 (B5): small integers are exact in any order (``torch.equal``); normal
 values within atol = rtol = 1e-4 in float32 (the reference's sweep) and one
 bf16 rounding (rtol 2^-7) in bfloat16, since both versions sum in float32.
@@ -394,6 +396,145 @@ def test_flash_attention_rows_that_see_no_key_are_zero(dev):
     torch.testing.assert_close(out, want, **_tol(torch.float32))
 
 
+def _launched(route):
+    """Counts of the total and of ``route``'s launches, to diff after a call."""
+    return FA.LAUNCHES["flash_attention"], FA.LAUNCHES["flash_attention_" + route]
+
+
+def _check_route(before, route):
+    total, own = _launched(route)
+    assert (total - before[0], own - before[1]) == (1, 1), route
+
+
+GEMMA_HEADS = dict(Hq=8, Hkv=4, D=256)     # gemma3-4b's attention at full width
+
+
+@pytest.mark.parametrize("S,window", [(2048, None), (2048, 1024), (200, None), (1000, 1024),
+                                      (1000, None), (129, 64)])
+def test_flash_attention_tc_gemma_heads(dev, S, window):
+    """The tensor-core prefill (wgmma + TMA) at gemma3-4b's heads: full and
+    windowed 2048-token prompts, and ragged lengths off the 128-row and
+    64-key tiles."""
+    g = GEMMA_HEADS
+    q = _normal(11, (2, g["Hq"], S, g["D"]), dev, torch.bfloat16)
+    k = _normal(12, (2, g["Hkv"], S, g["D"]), dev, torch.bfloat16)
+    v = _normal(13, (2, g["Hkv"], S, g["D"]), dev, torch.bfloat16)
+    assert FA.attention_route(q.dtype, g["D"], S, g["Hq"] // g["Hkv"]) == "tc"
+    before = _launched("tc")
+    out = FA.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    _check_route(before, "tc")
+    want = FA.attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset,window", [(300, 1000, 700, None), (300, 1000, 700, 256),
+                                                   (100, 100, -20, None), (256, 256, -200, 64),
+                                                   (300, 1200, 700, None)])
+def test_flash_attention_tc_offsets(dev, Sq, Sk, q_offset, window):
+    """Chunked prefill (q_offset > 0: the rows sit after earlier keys; with
+    Sk past q_offset + Sq the keys beyond the last row's position hold NaN
+    and must never be read) and negative offsets, whose first rows see no
+    key and give 0."""
+    g = GEMMA_HEADS
+    q = _normal(14, (1, g["Hq"], Sq, g["D"]), dev, torch.bfloat16)
+    k = _normal(15, (1, g["Hkv"], Sk, g["D"]), dev, torch.bfloat16)
+    v = _normal(16, (1, g["Hkv"], Sk, g["D"]), dev, torch.bfloat16)
+    end = max(q_offset + Sq, 0)
+    k[:, :, end:] = float("nan")
+    v[:, :, end:] = float("nan")
+    before = _launched("tc")
+    out = FA.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    _check_route(before, "tc")
+    want = FA.attention_plain(q, k[:, :, :end], v[:, :, :end], causal=True, window=window,
+                              q_offset=q_offset)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(torch.bfloat16))
+    if q_offset < 0:
+        assert torch.equal(out[:, :, :-q_offset], torch.zeros_like(out[:, :, :-q_offset]))
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_attention_tc_strided_views(dev, D):
+    """q as the [B, S, Hq, D] projection seen as [B, Hq, S, D], k and v as
+    layers of [L, B, Hkv, S, D] caches, k and v with different layouts."""
+    B, S, Hq, Hkv = 2, 333, 8, 4
+    q = _normal(17, (B, S, Hq, D), dev, torch.bfloat16).transpose(1, 2)
+    cache = _normal(18, (3, B, Hkv, 400, D), dev, torch.bfloat16)
+    k = cache[1, :, :, :S]
+    v = _normal(19, (B, S, Hkv, D), dev, torch.bfloat16).transpose(1, 2)
+    before = _launched("tc")
+    out = FA.flash_attention(q, k, v, causal=True, window=100)
+    torch.cuda.synchronize()
+    _check_route(before, "tc")
+    want = FA.attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), window=100)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 256), (torch.float32, 64),
+                                     (torch.bfloat16, 16), (torch.bfloat16, 32),
+                                     (torch.float32, 16)])
+def test_flash_attention_simt_routes(dev, dtype, D):
+    """Float32 and the narrow head widths keep the CUDA-core kernel."""
+    q = _normal(20, (2, 4, 150, D), dev, dtype)
+    k = _normal(21, (2, 2, 150, D), dev, dtype)
+    v = _normal(22, (2, 2, 150, D), dev, dtype)
+    before = _launched("simt")
+    out = FA.flash_attention(q, k, v, causal=True, window=40)
+    torch.cuda.synchronize()
+    _check_route(before, "simt")
+    want = FA.attention_plain(q, k, v, causal=True, window=40)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [None, 1024, 100])
+@pytest.mark.parametrize("cache_len", [1, 63, 64, 65, 127, 128, 129, 231, 232, 1024, 1025,
+                                       1155, 2079, 2080])
+def test_decode_split_edges(dev, dtype, window, cache_len):
+    """The split-K decode at gemma3-4b's heads (batch 8, the serve path's
+    shape) with the last visible row on and either side of split edges (231
+    and 1155 are edges of the global layer's 2,079 rows, 128 of the local
+    layer's); rows past cache_len hold NaN and must not be read."""
+    g = GEMMA_HEADS
+    q = _normal(23, (8, g["Hq"], 1, g["D"]), dev, dtype)
+    kc = _normal(24, (8, g["Hkv"], 2080, g["D"]), dev, dtype)
+    vc = _normal(25, (8, g["Hkv"], 2080, g["D"]), dev, dtype)
+    kc[:, :, cache_len:] = float("nan")
+    vc[:, :, cache_len:] = float("nan")
+    lo, hi = FA.visible_rows(1, 2080, True, window, cache_len - 1)
+    splits, chunk = FA.decode_splits(8, g["Hkv"], hi - lo, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    before = _launched("decode")
+    out = FA.decode_attention(q, kc, vc, cache_len, window=window)
+    torch.cuda.synchronize()
+    _check_route(before, "decode")
+    want = FA.attention_plain(q, kc[:, :, :cache_len], vc[:, :, :cache_len], causal=True,
+                              window=window, q_offset=cache_len - 1)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+    split = FA.decode_attention_split_plain(q, kc[:, :, :cache_len], vc[:, :, :cache_len],
+                                            splits=splits, chunk=chunk, window=window,
+                                            q_offset=cache_len - 1)
+    torch.testing.assert_close(out.float(), split.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("Sq,group,q_offset,window", [(4, 2, 600, 50), (16, 1, 300, None),
+                                                      (8, 2, -3, None), (2, 8, 1000, 7)])
+def test_decode_route_several_rows(dev, Sq, group, q_offset, window):
+    """Up to 16 query rows a kv head go to the decode kernel, each with its
+    own causal bound and window edge inside the splits."""
+    Hkv, D, Sk = 2, 128, 1100
+    q = _normal(26, (2, Hkv * group, Sq, D), dev, torch.bfloat16)
+    k = _normal(27, (2, Hkv, Sk, D), dev, torch.bfloat16)
+    v = _normal(28, (2, Hkv, Sk, D), dev, torch.bfloat16)
+    before = _launched("decode")
+    out = FA.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    _check_route(before, "decode")
+    want = FA.attention_plain(q, k, v, causal=True, window=window, q_offset=q_offset)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(torch.bfloat16))
+
+
 def test_flash_attention_refuses_bad_operands(dev):
     q = torch.zeros(1, 2, 8, 64, device=dev)
     with pytest.raises(ValueError):
@@ -498,6 +639,54 @@ def test_bucket_scatter_exact_with_hub_and_empty_segments(dev, C):
         # both round the same exact float32 sum once
         assert torch.equal(out, BS.bucket_scatter_plain(contrib.to(dtype), seg, V))
         assert bool((out[:17] == 0).all()) and bool((out[V - 10:] == 0).all())
+
+
+def _near_one_segments(rng, V, hub):
+    """About one edge a segment (a GNN request's union graph): degrees 0, 1
+    and 2, empty runs at both ends, one hub."""
+    deg = rng.choice([0, 1, 1, 1, 2], size=V)
+    deg[:5] = 0
+    deg[-5:] = 0
+    deg[V // 3] = hub
+    return np.repeat(np.arange(V, dtype=np.int32), deg)
+
+
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hub", [1, 5000])
+def test_bucket_scatter_narrow_at_one_edge_a_segment(dev, C, dtype, hub):
+    """B5's narrow path where E is about V: a thread a segment (G = 1)."""
+    rng = np.random.default_rng(C + hub)
+    V = 169_984
+    seg = torch.from_numpy(_near_one_segments(rng, V, hub)).to(dev)
+    E = seg.numel()
+    assert BS.build_layout(seg, V).lanes == 1
+    contrib = torch.from_numpy(rng.normal(size=(E, C)).astype(np.float32)).to(dev, dtype)
+    n0 = BS.LAUNCHES["bucket_scatter"]
+    out = BS.bucket_scatter(contrib, seg, V, layout=BS.build_layout(seg, V))
+    torch.cuda.synchronize()
+    assert BS.LAUNCHES["bucket_scatter"] == n0 + 1
+    want = BS.bucket_scatter_plain(contrib, seg, V)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+    else:
+        torch.testing.assert_close(out.float(), want.float(), atol=1e-5, rtol=2.0 ** -7)
+    empty = torch.bincount(seg.long(), minlength=V) == 0
+    assert bool((out[empty] == 0).all())
+
+
+@pytest.mark.parametrize("E,V", [(4000, 1000), (16_000, 1000), (200_000, 1000)])
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_bucket_scatter_narrow_lane_groups(dev, E, V, C):
+    """Longer segments take G = 2 .. 32 lanes; integer values are exact in
+    any order, so the kernel equals its plain version."""
+    rng = np.random.default_rng(E + C)
+    seg = _segments(rng, E, V).to(dev)
+    assert BS.build_layout(seg, V).lanes > 1
+    contrib = torch.from_numpy(rng.integers(-3, 4, size=(E, C)).astype(np.float32)).to(dev)
+    out = BS.bucket_scatter(contrib, seg, V)
+    torch.cuda.synchronize()
+    assert torch.equal(out, BS.bucket_scatter_plain(contrib, seg, V))
 
 
 def test_bucket_scatter_refuses_bad_operands(dev):
