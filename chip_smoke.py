@@ -46,6 +46,27 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                lane group G the wrapper launched with (``lane_group`` of the
                lanes an edge takes; B2: the lanes of one destination and
                query, a warp, or a block at B >= 32).
+  6b. serve    the query server on the main graph (``serving/``,
+               ``launch/query.py``), on the kernels (impl='cuda'): the
+               bucket drain ``--serve`` runs (``GraniteServer.
+               run_workload_scheduled`` with the flight recorder and the
+               metrics registry) of the Q1-Q8 workload (8 instances each,
+               seed 1) and the MIN variants of its ETR-free template, a
+               static-mode drain with one traced flush, and the open-loop
+               replay at 50 queries/s (``replay_workload``).  B1 and B3's
+               counters, set to 0 before the drains, must have moved after.
+               Per drain, a steady flush (every plan and executable cached)
+               gives each group's template, engine, split, impl, batch, the
+               planner's predicted ms and its CUDA-event ms; the flush's wall
+               ms beside the sum of its dispatch ms (the difference is the
+               runtime's host time), served latency p50/p95/p99, queries/s,
+               peak beside resident memory and the caches.  Every served
+               query must be done, and every group's answer equal to
+               ``execute_batch_out`` at its split on impl='torch' (bit-equal
+               below 2^24, rtol 1e-6 at or above, counted).  Then ``python -m
+               repro_torch.launch.query --persons 1000 --dynamic --queries 2
+               --serve --verify`` must exit 0 and print ``verification vs
+               oracle: OK``.
   7. lm        gemma3-4b at full width (34 layers, 3.88 B parameters in bf16,
                random weights from SEED, made on the card): first its SMOKE
                variant on the card against the port on the CPU; then the
@@ -944,6 +965,209 @@ def warp_entry(graph, jobs) -> dict:
 
 
 # =========================================================================
+# the query server: serving/ and launch/query.py on the main graph
+# =========================================================================
+SERVE_RATE_QPS = 50.0         # the CLI's default --rate
+SERVE_CLI = ["--persons", "1000", "--dynamic", "--queries", "2", "--serve", "--verify"]
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(xs, q)) if len(xs) else 0.0
+
+
+def check_served(res, what: str) -> None:
+    bad = [(i, r.template, r.status, r.error) for i, r in enumerate(res)
+           if r.status != "done" or r.error]
+    if bad:
+        raise AssertionError(f"serve {what}: {len(bad)} queries not done, first {bad[0]}")
+
+
+def timed_flush(sched, wl, what: str) -> dict:
+    """One steady-state flush (every plan and executable cached, so no
+    untimed first call): wall ms beside the sum of the dispatches' ms (the
+    difference is the runtime's own host time), per-query served latency,
+    queries/s, peak beside resident memory, and one line per group."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = sched.run(wl, warm=True)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    check_served(res, what)
+    disp = sched.last_dispatches
+    if any(not d.exec_cached for d in disp):
+        raise AssertionError(f"serve {what}: a steady flush rebuilt an executable")
+    groups = []
+    for d in disp:
+        qs = [wl[i].qry for i in d.indices]
+        pred = sched._planner.estimate_batch(qs, d.split, d.impl).t_ms
+        pred += d.n_pad * sched._planner.estimate(qs[0], d.split, d.impl).t_ms
+        grp = dict(template=wl[d.indices[0]].template, engine=d.engine, split=d.split,
+                   impl=d.impl, batch=d.n_real, n_pad=d.n_pad, predicted_ms=pred,
+                   dispatch_ms=d.service_s * 1e3, event_ms=d.event_ms)
+        groups.append(grp)
+        log(f"serve: {what:6s} {grp['template']:7s} {d.engine:6s} split={d.split} "
+            f"impl={d.impl} batch={d.n_real} predicted_ms={pred:.3f} "
+            f"event_ms={d.event_ms:.3f} dispatch_ms={grp['dispatch_ms']:.3f}")
+    lat = [r.latency_ms for r in res]
+    out = dict(n_queries=len(res), n_groups=len(disp), wall_ms=wall_ms,
+               dispatch_sum_ms=sum(g["dispatch_ms"] for g in groups),
+               event_sum_ms=sum(g["event_ms"] for g in groups),
+               latency_ms_p50=_pct(lat, 50), latency_ms_p95=_pct(lat, 95),
+               latency_ms_p99=_pct(lat, 99), qps=len(res) / (wall_ms / 1e3),
+               peak_bytes=peak, resident_bytes=resident, groups=groups,
+               counts=[r.count for r in res])
+    out["host_ms"] = out["wall_ms"] - out["dispatch_sum_ms"]
+    log(f"serve: {what} flush of {len(res)} queries in {len(disp)} groups: wall_ms="
+        f"{wall_ms:.3f} dispatch_sum_ms={out['dispatch_sum_ms']:.3f} (CUDA events "
+        f"{out['event_sum_ms']:.3f}) host_ms={out['host_ms']:.3f} qps={out['qps']:.1f} "
+        f"latency_ms p50={out['latency_ms_p50']:.3f} p95={out['latency_ms_p95']:.3f} "
+        f"p99={out['latency_ms_p99']:.3f} peak_GiB={peak / 2**30:.3f} "
+        f"resident_GiB={resident / 2**30:.3f}")
+    return out
+
+
+def check_groups(graph, sched, wl, counts, what: str) -> dict:
+    """Serve ``wl`` once more with the outputs kept, and hold every group's
+    answer against ``execute_batch_out`` at the group's split on the plain
+    lowering, on the card (bit-equal below 2^24, rtol 1e-6 at or above,
+    counted); the counts must equal the timed flush's."""
+    from repro_torch.core import engine as E
+
+    sched.keep_outputs = True
+    res = sched.run(wl, warm=True)
+    sched.keep_outputs = False
+    check_served(res, what)
+    if [r.count for r in res] != counts:
+        raise AssertionError(f"serve {what}: counts moved between two flushes")
+    errs = dict(max_abs_err=0.0, n_ge_2_24=0, n_groups=0)
+    for d in sched.last_dispatches:
+        qs = [wl[i].qry for i in d.indices]
+        ref = E.execute_batch_out(graph, qs, split=d.split, mode=sched._mode_for(qs[0]),
+                                  n_buckets=sched.n_buckets, sliced=d.engine == "sliced",
+                                  impl="torch", device="cuda")
+        for f in ("total", "per_vertex", "minmax"):
+            want = getattr(ref, f)
+            got = [getattr(res[i], f) for i in d.indices]
+            if want is None and all(g is None for g in got):
+                continue
+            if want is None or any(g is None for g in got):
+                raise AssertionError(f"serve {what} {qs[0]}: {f} missing on one side")
+            got = torch.from_numpy(np.stack(got)).cuda()
+            e = compare(got, want, f"serve {what} {wl[d.indices[0]].template} {f}")
+            errs["max_abs_err"] = max(errs["max_abs_err"], e["max_abs_err"])
+            errs["n_ge_2_24"] += e["n_ge_2_24"]
+            del got
+        del ref
+        errs["n_groups"] += 1
+    free_memory()
+    log(f"serve: {what}: {errs['n_groups']} groups equal impl='torch' at their splits "
+        f"(max_abs_err {errs['max_abs_err']}, {errs['n_ge_2_24']} entries >= 2^24)")
+    return errs
+
+
+def phase_serve(graph) -> dict:
+    """The query server at full size on the main graph: the bucket drain
+    ``--serve`` runs (``GraniteServer.run_workload_scheduled``, flight
+    recorder and metrics attached), a static drain (``BatchScheduler`` in
+    static mode) with one traced flush, and the open-loop replay of
+    ``--replay``, all on the kernels (``impl='cuda'``); then the CLI itself
+    on a small graph."""
+    from repro_torch.core import engine as E
+    from repro_torch.graphdata.queries import make_workload, to_minmax
+    from repro_torch.kernels import hop_scatter as HK
+    from repro_torch.launch.query import GraniteServer
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serving import BatchScheduler, replay_workload
+
+    t_phase = time.perf_counter()
+    wl = make_workload(graph, n_per_template=N_BATCH, seed=SEED)
+    wl += [to_minmax(i, graph) for i in wl
+           if all(e.etr_op == -1 for e in i.qry.e_preds)]
+    info = dict(n_queries=len(wl), templates=sorted({i.template for i in wl}))
+    HK.reset_launches()           # counts are 0 just before the drains
+
+    # ---- bucket drain: what --serve runs on a dynamic graph
+    tracer, metrics = Tracer(capacity=1 << 20), MetricsRegistry()
+    t0 = time.perf_counter()
+    server = GraniteServer(graph)
+    res = server.run_workload_scheduled(wl, engine="auto", warm=True, tracer=tracer,
+                                        metrics=metrics)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    check_served(res, "bucket")
+    sched = server.scheduler
+    if sched.impl != "cuda" or sched.mode != E.MODE_BUCKET:
+        raise AssertionError(f"serve: --serve ran impl={sched.impl} mode={sched.mode}")
+    bucket = timed_flush(sched, wl, "bucket")
+    bucket.update(cold_ms=cold_ms, caches=sched.cache_report(),
+                  spans=tracer.n_completed,
+                  dispatch_ms_hist=metrics.snapshot()["granite_dispatch_ms"])
+    log(f"serve: bucket first flush (stats, plans, first calls) {cold_ms:.1f} ms; caches "
+        f"{bucket['caches']}; {tracer.n_completed} spans recorded")
+    bucket["launches"] = dict(HK.LAUNCHES)
+    bucket["check"] = check_groups(graph, sched, wl, bucket["counts"], "bucket")
+    del server, sched, tracer, res
+    free_memory()
+
+    # ---- static drain: the host share of short dispatches
+    mark = dict(HK.LAUNCHES)
+    sst = BatchScheduler(graph, mode=E.MODE_STATIC, engine="auto")
+    check_served(sst.run(wl, warm=True), "static")
+    static = timed_flush(sst, wl, "static")
+    static["caches"] = sst.cache_report()
+    log(f"serve: static caches {static['caches']}")
+    static["trace"] = traced(lambda: check_served(sst.run(wl), "static traced"))
+    log_trace("profile: serve static flush", static["trace"])
+    static["launches"] = {k: HK.LAUNCHES[k] - mark[k] for k in HK.LAUNCHES}
+    static["check"] = check_groups(graph, sst, wl, static["counts"], "static")
+    del sst
+    free_memory()
+
+    # ---- open-loop replay at the CLI's default rate
+    mark = dict(HK.LAUNCHES)
+    rsched = BatchScheduler(graph)
+    rep = replay_workload(rsched, wl, rate_qps=SERVE_RATE_QPS, seed=SEED, warm=True)
+    torch.cuda.synchronize()
+    replay = rep.as_dict()
+    if rep.n_completed != len(wl) or rep.failures:
+        raise AssertionError(f"serve replay: {rep.n_completed}/{len(wl)} done, "
+                             f"failures {rep.failures[:1]}")
+    replay["launches"] = {k: HK.LAUNCHES[k] - mark[k] for k in HK.LAUNCHES}
+    log("serve: replay " + json.dumps(replay))
+    del rsched
+    free_memory()
+
+    launches = dict(HK.LAUNCHES)  # read just after the drains
+    missing = [k for k in ("fused_hop_cols", "scatter_cols") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve: the drains never launched {missing}")
+    log(f"serve: launches over the drains and their check flushes: {launches} (bucket "
+        f"{bucket['launches']}, static {static['launches']}, replay {replay['launches']})")
+
+    # ---- the CLI a user starts, on a small graph
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.query"] + SERVE_CLI,
+                         cwd=ROOT, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0 or "verification vs oracle: OK" not in cli.stdout:
+        raise AssertionError(f"serve: the CLI failed (rc {cli.returncode}): "
+                             f"{cli.stdout[-800:]} {cli.stderr[-1500:]}")
+    log(f"serve: python -m repro_torch.launch.query {' '.join(SERVE_CLI)}: rc 0, "
+        f"verification vs oracle: OK ({cli_s:.1f}s)")
+    for d in (bucket, static):
+        d.pop("counts")
+    info.update(bucket=bucket, static=static, replay=replay, launches=launches,
+                cli=dict(argv=SERVE_CLI, rc=cli.returncode, seconds=cli_s),
+                wall_s=time.perf_counter() - t_phase)
+    log(f"serve: phase {info['wall_s']:.1f}s")
+    return info
+
+
+# =========================================================================
 # model serving: gemma3-4b (B7) and DLRM-RM2 (B8)
 # =========================================================================
 def model_entry(name: str, variant: str, kern, plain, library, nbytes: float,
@@ -1681,6 +1905,11 @@ def main(argv=None) -> int:
     rec.capture(lambda j: run_job(graph, jobs[j]))
     kernels = phase_kernels(rec, REPORT["main"]["launches"])
     kernels.append(warp_entry(graph, jobs))
+    REPORT["serve"] = phase_serve(graph)
+    for e in kernels:             # B1 and B3's launches on the serve path
+        base = e["name"].split("[")[0]
+        if base in REPORT["serve"]["launches"]:
+            e["serve_launches"] = REPORT["serve"]["launches"][base]
     del rec, graph, jobs
     free_memory()
     REPORT["lm"], lm_kernels = phase_lm()

@@ -1,0 +1,1 @@
+"""Entry points users start: ``python -m repro_torch.launch.query``."""

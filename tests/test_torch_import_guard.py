@@ -50,7 +50,9 @@ def test_every_module_imports_with_jax_and_the_reference_blocked():
     for m in ("repro_torch.core.engine", "repro_torch.models.transformer",
               "repro_torch.models.dlrm", "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.embedding_bag.ops", "repro_torch.configs.gemma3_4b",
-              "repro_torch.configs.dlrm_rm2"):
+              "repro_torch.configs.dlrm_rm2", "repro_torch.core.planner",
+              "repro_torch.serving.scheduler", "repro_torch.obs.trace",
+              "repro_torch.launch.query"):
         assert m in modules, m
     code = f"""
 import importlib, sys
