@@ -1905,6 +1905,8 @@ def main(argv=None) -> int:
     rec.capture(lambda j: run_job(graph, jobs[j]))
     kernels = phase_kernels(rec, REPORT["main"]["launches"])
     kernels.append(warp_entry(graph, jobs))
+    rec.inputs.clear()            # the kernels phase's operands: not the server's memory
+    free_memory()
     REPORT["serve"] = phase_serve(graph)
     for e in kernels:             # B1 and B3's launches on the serve path
         base = e["name"].split("[")[0]
