@@ -14,6 +14,8 @@ import math
 import types
 
 import numpy as np
+import pytest
+import torch
 
 import repro.core.engine_sliced as JES
 import repro.core.query as JQ
@@ -35,6 +37,16 @@ import repro_torch.serving.replay as TSR
 import repro_torch.serving.testing as TST
 
 IMPL_NAMES = {"xla": "torch", "pallas": "cuda"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's small tensors: faster here, and
+    the suite runs test files in parallel worker processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _namespace(name, S, ST, SF, SR, O, OT, W, Q, ES, xla, pallas, sched_kw):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 import serving_parity as SP
+from serving_parity import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.graphdata import ldbc as TL
 from repro_torch.graphdata.queries import make_workload
 from repro_torch.obs import MetricsRegistry, StepClock, Tracer, span_trees

@@ -22,6 +22,7 @@ from repro_torch.core import planner as TP
 from repro_torch.core import query as TQ
 from repro_torch.core import stats as TS
 from repro_torch.graphdata import ldbc as TL
+from serving_parity import one_torch_thread  # noqa: F401  (autouse)
 
 # (conftest fixture, its generator parameters)
 GRAPHS = {

@@ -30,6 +30,7 @@ import torch
 
 import conformance as C
 import serving_parity as SP
+from serving_parity import one_torch_thread  # noqa: F401  (autouse)
 from repro.graphdata.queries import make_workload as j_make_workload
 from repro.graphdata.queries import to_minmax as j_to_minmax
 from repro.serving import BatchScheduler as JBatchScheduler
