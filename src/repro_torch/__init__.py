@@ -6,7 +6,9 @@ rewritten by hand in CUDA for Hopper (``csrc/``).  It imports neither JAX nor
 the reference package.
 
 Entry points (``core/engine.py``): ``execute``, ``count_results``,
-``batch_executable``, ``execute_batch`` and ``execute_batch_out``.  They run
-on the card unless the caller passes ``device='cpu'``, and take
-``impl='cuda'`` (the kernels, the default) or ``impl='torch'`` (plain ops).
+``batch_executable``, ``execute_batch`` and ``execute_batch_out``; the query
+server on top of them (``serving.BatchScheduler``, ``launch/query.py``, run
+as ``python -m repro_torch.launch.query``).  They run on the card unless the
+caller passes ``device='cpu'``, and take ``impl='cuda'`` (the kernels, the
+default) or ``impl='torch'`` (plain ops).
 """
