@@ -46,6 +46,23 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                lane group G the wrapper launched with (``lane_group`` of the
                lanes an edge takes; B2: the lanes of one destination and
                query, a warp, or a block at B >= 32).
+  6a. part.    the partitioned executor (core/engine_partitioned.py) on the
+               main graph at W = 4 and 8 (parts_per_type = max(4, W // 2)):
+               set-up (partition and table seconds, v_max, e_max, h_max,
+               edge cut, size imbalance, exchange volumes, the pad slots the
+               kernels' flattened CSR leaves out); every main-path job
+               through ``execute_batch_out(impl='cuda')``, median of 5
+               CUDA-event timings beside the main phase's ms, peak beside
+               resident memory; answers held to the main path's impl='cuda'
+               (and at W = 4 to partitioned impl='torch'), bit-equal below
+               2^24, rtol 1e-6 above (counted); every timed call must
+               launch B1 (B2 in interval mode) once per plain hop and B3
+               once per ETR hop, and each of the three must launch over the
+               phase.  ``measure_supersteps`` on Q4 and agg-min-2hop in
+               static mode (per-hop makespan, balance, channel volumes);
+               at W = 4 one traced run of each profiled job (phase 5's).
+               Then the worker-form B1-B3 lines on the largest W = 8 call of
+               each variant, timed as in phase 6.
   6b. serve    the query server on the main graph (``serving/``,
                ``launch/query.py``), on the kernels (impl='cuda'): the
                bucket drain ``--serve`` runs (``GraniteServer.
@@ -53,8 +70,11 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                metrics registry) of the Q1-Q8 workload (8 instances each,
                seed 1) and the MIN variants of its ETR-free template, a
                static-mode drain with one traced flush, and the open-loop
-               replay at 50 queries/s (``replay_workload``).  B1 and B3's
-               counters, set to 0 before the drains, must have moved after.
+               replay at 50 queries/s (``replay_workload``), and bucket and
+               static drains on the partitioned engine (``n_workers=4``),
+               every query's answer held to the auto (sliced/dense) drain's
+               (bit-equal below 2^24).  B1 and B3's counters, set to 0
+               before the drains, must have moved after, on both engines.
                Per drain, a steady flush (every plan and executable cached)
                gives each group's template, engine, split, impl, batch, the
                planner's predicted ms and its CUDA-event ms; the flush's wall
@@ -66,7 +86,8 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                below 2^24, rtol 1e-6 at or above, counted).  Then ``python -m
                repro_torch.launch.query --persons 1000 --dynamic --queries 2
                --serve --verify`` must exit 0 and print ``verification vs
-               oracle: OK``.
+               oracle: OK``, and so must the same command with ``--engine
+               partitioned``.
   7. lm        gemma3-4b at full width (34 layers, 3.88 B parameters in bf16,
                random weights from SEED, made on the card): first its SMOKE
                variant on the card against the port on the CPU; then the
@@ -448,6 +469,29 @@ def phase_oracle() -> None:
     REPORT["oracle"] = dict(persons=200, templates_with_matches=int(n_nonzero))
 
 
+def _wrapper_specs(suffix: str) -> list:
+    """(wrapper name, variant key, call size) of B1, B2 and B3's wrappers:
+    the main path's (``suffix`` "") or the partitioned executor's worker
+    form ("_workers"), whose last positional operand is the layout."""
+    return [
+        ("fused_hop_cols" + suffix,
+         lambda state, src, w, ptr, mch=None, **kw: ("fused_hop_cols" + suffix,
+                                                     state.shape[-1], mch is not None),
+         lambda state, src, w, ptr, **kw: src.numel() * w.shape[0] * w.shape[2]),
+        ("fused_hop_interval" + suffix,
+         lambda state, src, w, sb, eb, ptr, mch=None, **kw: ("fused_hop_interval" + suffix,
+                                                             state.shape[-2], mch is not None),
+         lambda state, src, w, *a, **kw: src.numel() * w.shape[0]),
+        ("scatter_cols" + suffix,
+         lambda contrib, ptr: ("scatter_cols" + suffix, contrib[0, 0].numel(), False),
+         lambda contrib, ptr: contrib.numel()),
+    ]
+
+
+MAIN_SPECS = _wrapper_specs("")
+WORKER_SPECS = _wrapper_specs("_workers")
+
+
 class Recorder:
     """Finds the largest main-path call of every kernel variant, then
     captures its inputs for the kernels phase.
@@ -457,8 +501,9 @@ class Recorder:
     ``capture`` then re-runs each chosen job once and keeps the inputs of
     that call.  Launches are still counted inside the wrappers only."""
 
-    def __init__(self, HK):
+    def __init__(self, HK, specs=None):
         self.HK = HK
+        self.specs = specs if specs is not None else MAIN_SPECS
         self.job = None          # index of the job being run
         self.best = {}           # variant key -> (size, job index)
         self.inputs = {}         # variant key -> (wrapper name, args, kwargs)
@@ -481,17 +526,8 @@ class Recorder:
         setattr(self.HK, name, wrapped)
 
     def __enter__(self):
-        self._wrap("fused_hop_cols",
-                   lambda state, src, w, ptr, mch=None, **kw:
-                   ("fused_hop_cols", state.shape[-1], mch is not None),
-                   lambda state, src, w, ptr, **kw: src.numel() * w.shape[0] * w.shape[2])
-        self._wrap("fused_hop_interval",
-                   lambda state, src, w, sb, eb, ptr, mch=None, **kw:
-                   ("fused_hop_interval", state.shape[-2], mch is not None),
-                   lambda state, src, w, *a, **kw: src.numel() * w.shape[0])
-        self._wrap("scatter_cols",
-                   lambda contrib, ptr: ("scatter_cols", contrib[0, 0].numel(), False),
-                   lambda contrib, ptr: contrib.numel())
+        for name, key_fn, size_fn in self.specs:
+            self._wrap(name, key_fn, size_fn)
         return self
 
     def __exit__(self, *exc):
@@ -774,38 +810,47 @@ def fmt_times(t: dict) -> str:
                     for k, v in t.items())
 
 
-def phase_kernels(recorder: Recorder, launches: dict) -> list:
+def hop_entry(launches: dict, name, variant, kern, plain, library, nbytes, flops,
+              shape=None) -> dict:
+    """One B1-B4 line: the kernel held to its plain version, timed by
+    ``timings`` (``library``: one call or None), beside its bound."""
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err = {"max_abs_err": 0.0, "n_ge_2_24": 0}
+    for a, b, f in zip(got, want, ("out", "mch")):
+        if a is None and b is None:
+            continue
+        e = compare(a, b, f"kernel {name}[{variant}] {f}")
+        err["max_abs_err"] = max(err["max_abs_err"], e["max_abs_err"])
+        err["n_ge_2_24"] += e["n_ge_2_24"]
+    del got, want
+    times = timings(kern, plain, {} if library is None else {"call": library})
+    b_ms, b_by = bound(nbytes, flops)
+    e = dict(name=f"{name}[{variant}]", route="cuda", source=SOURCE[name],
+             replaces=REPLACES[name], launches=launches[name],
+             max_abs_err=err["max_abs_err"], **times, bound_ms=b_ms, bound_by=b_by,
+             n_ge_2_24=err["n_ge_2_24"], bytes=nbytes, flops=flops, shape=shape)
+    log(f"kernels: {e['name']:34s} {fmt_times(times)}"
+        f" bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err['max_abs_err']} "
+        f"n>=2^24={err['n_ge_2_24']} launches={launches[name]}"
+        + "".join(f" {k}={v}" for k, v in (shape or {}).items()))
+    torch.cuda.empty_cache()
+    return e
+
+
+def hop_kernel_lines(inputs: dict, launches: dict, tag: str = "") -> list:
+    """B1-B3 lines on captured calls (``Recorder.inputs``), each held to its
+    plain version and timed.  A worker-form call (the partitioned executor's
+    ``*_workers`` wrappers, captured with its ``WorkerCSR``) is timed through
+    that wrapper and held to the worker-form plain version; its bound and
+    library call are the base kernel's on the flattened CSR it launches on,
+    and its line also gives the workers and the share of pad slots that the
+    flattened CSR leaves out.  ``tag`` prefixes each variant."""
     from repro_torch.kernels import hop_scatter as HK
 
     entries = []
-
-    def entry(name, variant, kern, plain, library, nbytes, flops, shape=None):
-        """One B1-B4 line, timed by ``timings`` (``library``: one call or
-        None)."""
-        got = kern()
-        want = plain()
-        torch.cuda.synchronize()
-        err = {"max_abs_err": 0.0, "n_ge_2_24": 0}
-        for a, b, f in zip(got, want, ("out", "mch")):
-            if a is None and b is None:
-                continue
-            e = compare(a, b, f"kernel {name}[{variant}] {f}")
-            err["max_abs_err"] = max(err["max_abs_err"], e["max_abs_err"])
-            err["n_ge_2_24"] += e["n_ge_2_24"]
-        del got, want
-        times = timings(kern, plain, {} if library is None else {"call": library})
-        b_ms, b_by = bound(nbytes, flops)
-        e = dict(name=f"{name}[{variant}]", route="cuda", source=SOURCE[name],
-                 replaces=REPLACES[name], launches=launches[name],
-                 max_abs_err=err["max_abs_err"], **times, bound_ms=b_ms, bound_by=b_by,
-                 n_ge_2_24=err["n_ge_2_24"], bytes=nbytes, flops=flops, shape=shape)
-        entries.append(e)
-        log(f"kernels: {e['name']:34s} {fmt_times(times)}"
-            f" bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err['max_abs_err']} "
-            f"n>=2^24={err['n_ge_2_24']} launches={launches[name]}"
-            + "".join(f" {k}={v}" for k, v in (shape or {}).items()))
-        torch.cuda.empty_cache()
-
+    entry = lambda *a, **kw: entries.append(hop_entry(launches, *a, **kw))
     f32 = 4
 
     def csr_shape(Qn, ptr, E, w):
@@ -815,9 +860,22 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
         deg = int((ptr[1:] - ptr[:-1]).max()) if V else 0
         return dict(Q=Qn, V=V, E=E, w_shared=Qn > 1 and w.stride(0) == 0, max_deg=deg)
 
-    for key in sorted(recorder.inputs, key=str):
-        name, a, kw = recorder.inputs[key]
+    for key in sorted(inputs, key=str):
+        wname, wa, kw = inputs[key]
         mch = kw.get("mch")
+        name = wname.removesuffix("_workers")
+        worker = name != wname
+        extra = {}
+        if worker:     # the base kernel's operands: the flattened CSR's pointer
+            lay = wa[-1]
+            a = tuple(wa[:-1]) + (lay.ptr,)
+            extra = dict(W=lay.n_workers, pad_slots=lay.n_pad,
+                         pad_share=lay.n_pad / max(lay.n_pad + lay.n_real, 1))
+        else:
+            a = wa
+        kern_fn = lambda wname=wname, wa=wa, kw=kw: getattr(HK, wname)(*wa, **kw)
+        plain_fn = lambda wname=wname, wa=wa, kw=kw: getattr(HK, wname + "_plain")(*wa, **kw)
+        variant0 = tag
         if name == "fused_hop_cols":
             state, src, w, ptr = a
             Qn, N, C = state.shape
@@ -864,13 +922,12 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
                 library = lambda A=A, X=X: torch.bmm(A, X)
                 compare(back(library()), HK.fused_hop_cols(*a, **kw)[0],
                         "library bmm vs fused_hop_cols")
-            variant = f"C={C}" + (",extremum" if mch is not None else "")
+            variant = variant0 + f"C={C}" + (",extremum" if mch is not None else "")
             vec = HK.cols_vector_width(C, mch is not None, (state, HK.query_stride(state, "state")),
                                        (w, HK.query_stride(w, "w")))
-            entry(name, variant, lambda: HK.fused_hop_cols(*a, **kw),
-                  lambda: HK.fused_hop_cols_plain(*a, **kw), library, nbytes,
-                  2.0 * Qn * E * C,
-                  dict(csr_shape(Qn, ptr, E, w), C=C, G=HK.lane_group(E, V, C // vec)))
+            entry(name, variant, kern_fn, plain_fn, library, nbytes, 2.0 * Qn * E * C,
+                  dict(csr_shape(Qn, ptr, E, w), C=C, G=HK.lane_group(E, V, C // vec),
+                       **extra))
         elif name == "fused_hop_interval":
             state, src, w, sb, eb, ptr = a
             Qn, N, B, Bp1 = state.shape
@@ -882,12 +939,10 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
             nbytes = f32 * (V + 1 + E + 3 * qw * E + Qn * U * NC + Qn * V * NC)
             if mch is not None:
                 nbytes += f32 * (Qn * U + Qn * V)
-            variant = f"B={B}" + (",extremum" if mch is not None else "")
-            entry(name, variant, lambda: HK.fused_hop_interval(*a, **kw),
-                  lambda: HK.fused_hop_interval_plain(*a, **kw), None, nbytes,
-                  4.0 * active * NC,
+            variant = variant0 + f"B={B}" + (",extremum" if mch is not None else "")
+            entry(name, variant, kern_fn, plain_fn, None, nbytes, 4.0 * active * NC,
                   dict(csr_shape(Qn, ptr, E, w), B=B,
-                       lanes=HK.WARP if B + 1 <= HK.WARP else "block"))
+                       lanes=HK.WARP if B + 1 <= HK.WARP else "block", **extra))
         else:
             contrib, ptr = a
             Qn, E = contrib.shape[:2]
@@ -898,10 +953,19 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
             library = lambda: out0.clone().index_add_(1, seg, contrib)
             nbytes = f32 * (V + 1 + Qn * E * C + Qn * V * C)
             vec = HK.vector_width(C, (contrib, HK.query_stride(contrib, "contrib")))
-            entry(name, f"C={C}", lambda: (HK.scatter_cols(*a), None),
-                  lambda: (HK.scatter_cols_plain(*a), None), library, nbytes,
-                  1.0 * Qn * E * C,
-                  dict(csr_shape(Qn, ptr, E, contrib), C=C, G=HK.lane_group(E, V, C // vec)))
+            entry(name, variant0 + f"C={C}", lambda f=kern_fn: (f(), None),
+                  lambda f=plain_fn: (f(), None), library, nbytes, 1.0 * Qn * E * C,
+                  dict(csr_shape(Qn, ptr, E, contrib), C=C, G=HK.lane_group(E, V, C // vec),
+                       **extra))
+    return entries
+
+
+def phase_kernels(recorder: Recorder, launches: dict) -> list:
+    from repro_torch.kernels import hop_scatter as HK
+
+    entries = hop_kernel_lines(recorder.inputs, launches)
+    entry = lambda *a, **kw: entries.append(hop_entry(launches, *a, **kw))
+
     # B4 on the edges of the largest main-path ETR delivery (static, C = 1)
     key = ("scatter_cols", 1, False)
     contrib, ptr = recorder.inputs[key][1]
@@ -965,10 +1029,201 @@ def warp_entry(graph, jobs) -> dict:
 
 
 # =========================================================================
+# the partitioned executor on the main graph
+# =========================================================================
+PART_WORKERS = (4, 8)
+PART_REPEATS = 5              # timed calls a job (median)
+PART_PROFILED = ("Q4", "agg-min-2hop")
+HOP_KERNELS = ("fused_hop_cols", "fused_hop_interval", "scatter_cols")
+
+
+def expected_launches(qry, split: int, mode: int) -> dict:
+    """Launches of one kernel-lowered partitioned call: one per hop of each
+    segment (the left one runs e_preds[:split], the right one the reversed
+    query's first n - 1 - split hops, whose ETR ops shift by one), B3 on an
+    ETR hop, else B1 (B2 in interval mode)."""
+    plain = "fused_hop_interval" if mode == 2 else "fused_hop_cols"
+    out = dict.fromkeys(HOP_KERNELS, 0)
+    n = qry.n_vertices
+    for ep in qry.e_preds[:split] + qry.reversed().e_preds[:n - 1 - split]:
+        out["scatter_cols" if ep.etr_op != -1 else plain] += 1
+    return out
+
+
+def partition_setup(graph, W: int) -> dict:
+    """Partition, build the tables, upload them; their sizes and seconds."""
+    from repro_torch.core import engine_partitioned as EP
+
+    t0 = time.perf_counter()
+    part, arrays = EP.partition_for(graph, W)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, pdev = EP.device_tables(graph, W, device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    lay = pdev["layout"]
+    st = arrays.stats
+    info = dict(W=W, parts_per_type=st["parts_per_type"],
+                partition_s=arrays.setup_s["partition"], tables_s=arrays.setup_s["tables"],
+                host_s=host_s, upload_s=upload_s, v_max=arrays.v_max, e_max=arrays.e_max,
+                h_max=arrays.h_max, s_max=arrays.s_max, edge_cut=st["edge_cut"],
+                size_imbalance=st["size_imbalance"], edge_imbalance=st["edge_imbalance"],
+                state_exchange=arrays.exchange_volume(),
+                etr_exchange=arrays.etr_exchange_volume(), c_max=st["p2p_lane_width"],
+                etr_c_max=st["p2p_etr_lane_width"], pad_slots=lay.n_pad,
+                pad_share=lay.n_pad / (lay.n_pad + lay.n_real))
+    log(f"partitioned: W={W} partition {info['partition_s']:.1f}s tables "
+        f"{info['tables_s']:.1f}s upload {upload_s:.1f}s; v_max {arrays.v_max} e_max "
+        f"{arrays.e_max} h_max {arrays.h_max} s_max {arrays.s_max}; edge cut "
+        f"{st['edge_cut']:.4f} size imbalance {st['size_imbalance']:.4f}; exchange "
+        f"state {info['state_exchange']} etr {info['etr_exchange']} (lanes {info['c_max']} / "
+        f"{info['etr_c_max']}); pad slots {lay.n_pad} ({info['pad_share']:.4f}) left out")
+    return info
+
+
+def part_job(graph, job, W: int, impl: str = "cuda"):
+    from repro_torch.core import engine_partitioned as EP
+
+    _, mode, split, batch = job
+    return EP.execute_batch_out(graph, batch, split=split, mode=mode, n_buckets=16,
+                                n_workers=W, impl=impl, device="cuda")
+
+
+def phase_partitioned(graph, jobs, main_rows) -> tuple:
+    """The partitioned executor (``core/engine_partitioned.py``) at W = 4
+    and 8 on the main graph: every main-path job through
+    ``execute_batch_out(impl='cuda')``, latency (median of 5 CUDA-event
+    timings) beside the main phase's, peak and resident memory, answers held
+    to the main path's impl='cuda' (and at W = 4 to the partitioned
+    impl='torch'), B1-B3 launched exactly once per kernel-lowered hop; then
+    ``measure_supersteps`` and the worker-form kernel lines at W = 8.
+    Returns (report, kernel lines)."""
+    from repro_torch.core import engine_partitioned as EP
+    from repro_torch.kernels import hop_scatter as HK
+
+    t_phase = time.perf_counter()
+    main_ms = {(r["template"], r["mode"], r["split"]): r["cuda_ms"] for r in main_rows}
+    info = dict(workers={})
+    lines = []
+    for W in PART_WORKERS:
+        setup = partition_setup(graph, W)
+        rows = []
+        launches = dict.fromkeys(HK.LAUNCHES, 0)
+        rec = Recorder(HK, WORKER_SPECS) if W == PART_WORKERS[-1] else None
+        for j, job in enumerate(jobs):
+            t, mode, split, batch = job
+            mname = ["static", "bucket", "interval"][mode]
+            want_l = expected_launches(batch[0], split, mode)
+
+            def counted(fn):
+                before = dict(HK.LAUNCHES)
+                r = fn()
+                for k in launches:
+                    launches[k] += HK.LAUNCHES[k] - before[k]
+                return {k: HK.LAUNCHES[k] - before[k] for k in HK.LAUNCHES}
+
+            if rec is not None:
+                rec.job = j
+                with rec:
+                    counted(lambda: part_job(graph, job, W))        # warm-up
+            else:
+                counted(lambda: part_job(graph, job, W))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            times, per_call = [], []
+            for _ in range(PART_REPEATS):
+                out = None
+                ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                box = {}
+
+                def timed():
+                    ev0.record()
+                    box["out"] = part_job(graph, job, W)
+                    ev1.record()
+                per_call.append(counted(timed))
+                torch.cuda.synchronize()
+                times.append(ev0.elapsed_time(ev1))
+                out = box.pop("out")
+            peak = torch.cuda.max_memory_allocated()
+            for pc in per_call:
+                if {k: pc[k] for k in HOP_KERNELS} != want_l:
+                    raise AssertionError(f"partitioned W={W} {t} {mname} split {split}: "
+                                         f"launches {pc} != one per hop {want_l}")
+            errs = {}
+            ref = run_job(graph, job)                 # the main path, impl='cuda'
+            refs = [("main", ref)]
+            if W == PART_WORKERS[0]:
+                refs.append(("torch", part_job(graph, job, W, impl="torch")))
+            for tag, r in refs:
+                for field in ("total", "per_vertex", "minmax"):
+                    a, b = getattr(out, field), getattr(r, field)
+                    if a is None and b is None:
+                        continue
+                    if a is None or b is None:
+                        raise AssertionError(f"partitioned {t}: {field} missing on one side")
+                    e = compare(a, b, f"partitioned W={W} {t} {mname} split {split} "
+                                      f"{field} vs {tag}")
+                    errs[f"{tag}_{field}"] = e
+            del ref, refs, out
+            row = dict(template=t, mode=mname, split=split, batch=len(batch),
+                       ms=float(np.median(times)), times_ms=times,
+                       main_ms=main_ms.get((t, mname, split)), peak_bytes=peak,
+                       resident_bytes=base, launches_per_call=want_l, errors=errs)
+            rows.append(row)
+            log(f"partitioned: W={W} {t:13s} {mname:8s} split={split} Q={len(batch)} "
+                f"ms={row['ms']:.3f} main_ms={row['main_ms']} peak_GiB="
+                f"{peak / 2**30:.3f} resident_GiB={base / 2**30:.3f} launches/call="
+                f"{want_l} n>=2^24={sum(e['n_ge_2_24'] for e in errs.values())}")
+        missing = [k for k in HOP_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"partitioned W={W}: never launched {missing}")
+        log(f"partitioned: W={W} launches over the path: {launches}")
+        prof = {}
+        for name in PART_PROFILED:
+            job = next(jb for jb in jobs if jb[0] == name and jb[1] == 0)
+            p = EP.measure_supersteps(graph, job[3][0], n_workers=W, mode=0, repeats=3,
+                                      device="cuda")
+            prof[name] = dict(makespan_ms=(p.makespan_s * 1e3).tolist(),
+                              per_worker_ms=(p.times_s * 1e3).tolist(),
+                              balance_eff=p.balance_eff, channels=p.channel_totals(),
+                              total=p.total)
+            log(f"partitioned: W={W} measure_supersteps {name} static: makespan_ms "
+                f"{[round(x, 4) for x in prof[name]['makespan_ms']]} balance_eff "
+                f"{p.balance_eff:.4f} channels {p.channel_totals()}")
+        traces = []
+        if W == PART_WORKERS[0]:    # where the time goes, on the main path's profiled jobs
+            for job in jobs:
+                t, mode, split, batch = job
+                if t in PROFILED and split == (0 if batch[0].agg_op != -1
+                                               else batch[0].n_vertices - 1):
+                    tr = dict(template=t, mode=["static", "bucket", "interval"][mode],
+                              split=split, batch=len(batch),
+                              **traced(lambda: part_job(graph, job, W)))
+                    traces.append(tr)
+                    log_trace(f"profile: partitioned W={W} {t} {tr['mode']} split={split} "
+                              f"Q={len(batch)}", tr)
+        info["workers"][W] = dict(setup=setup, rows=rows, launches=launches,
+                                  supersteps=prof, traces=traces)
+        if rec is not None:
+            rec.capture(lambda j: part_job(graph, jobs[j], W))
+            lines = hop_kernel_lines(rec.inputs, launches, tag=f"W={W},")
+            rec.inputs.clear()
+            del rec
+        graph.__dict__.pop("_partition_dev_cache", None)
+        free_memory()
+    info["wall_s"] = time.perf_counter() - t_phase
+    log(f"partitioned: phase {info['wall_s']:.1f}s")
+    return info, lines
+
+
+# =========================================================================
 # the query server: serving/ and launch/query.py on the main graph
 # =========================================================================
 SERVE_RATE_QPS = 50.0         # the CLI's default --rate
 SERVE_CLI = ["--persons", "1000", "--dynamic", "--queries", "2", "--serve", "--verify"]
+SERVE_WORKERS = 4             # the partitioned drains' workers (the CLI's default)
 
 
 def _pct(xs, q) -> float:
@@ -1002,8 +1257,9 @@ def timed_flush(sched, wl, what: str) -> dict:
     groups = []
     for d in disp:
         qs = [wl[i].qry for i in d.indices]
-        pred = sched._planner.estimate_batch(qs, d.split, d.impl).t_ms
-        pred += d.n_pad * sched._planner.estimate(qs[0], d.split, d.impl).t_ms
+        planner = sched._planner_for(d.engine)
+        pred = planner.estimate_batch(qs, d.split, d.impl).t_ms
+        pred += d.n_pad * planner.estimate(qs[0], d.split, d.impl).t_ms
         grp = dict(template=wl[d.indices[0]].template, engine=d.engine, split=d.split,
                    impl=d.impl, batch=d.n_real, n_pad=d.n_pad, predicted_ms=pred,
                    dispatch_ms=d.service_s * 1e3, event_ms=d.event_ms)
@@ -1068,6 +1324,37 @@ def check_groups(graph, sched, wl, counts, what: str) -> dict:
     return errs
 
 
+def check_drains(sched, ref_sched, wl, what: str) -> dict:
+    """Serve ``wl`` on both schedulers with the outputs kept and hold every
+    query's total, per-vertex state and extremum of ``sched`` to
+    ``ref_sched``'s (bit-equal below 2^24, rtol 1e-6 at or above, counted)."""
+    errs = dict(max_abs_err=0.0, n_ge_2_24=0, n_queries=0)
+    outs = []
+    for sc in (sched, ref_sched):
+        sc.keep_outputs = True
+        res = sc.run(wl, warm=True)
+        sc.keep_outputs = False
+        check_served(res, what)
+        outs.append(res)
+    for i, (a, b) in enumerate(zip(*outs)):
+        for f in ("total", "per_vertex", "minmax"):
+            x, y = getattr(a, f), getattr(b, f)
+            if x is None and y is None:
+                continue
+            if x is None or y is None:
+                raise AssertionError(f"serve {what} query {i}: {f} missing on one side")
+            e = compare(torch.from_numpy(np.asarray(x)), torch.from_numpy(np.asarray(y)),
+                        f"serve {what} {wl[i].template} {f}")
+            errs["max_abs_err"] = max(errs["max_abs_err"], e["max_abs_err"])
+            errs["n_ge_2_24"] += e["n_ge_2_24"]
+        errs["n_queries"] += 1
+    del outs
+    free_memory()
+    log(f"serve: {what}: {errs['n_queries']} queries equal the {ref_sched.engine} drain's "
+        f"(max_abs_err {errs['max_abs_err']}, {errs['n_ge_2_24']} entries >= 2^24)")
+    return errs
+
+
 def phase_serve(graph) -> dict:
     """The query server at full size on the main graph: the bucket drain
     ``--serve`` runs (``GraniteServer.run_workload_scheduled``, flight
@@ -1126,6 +1413,24 @@ def phase_serve(graph) -> dict:
     del sst
     free_memory()
 
+    # ---- the partitioned engine: bucket and static drains, held to the
+    # sliced/dense drain of the same mode query by query
+    partitioned = {}
+    for mname, mode in (("bucket", E.MODE_BUCKET), ("static", E.MODE_STATIC)):
+        mark = dict(HK.LAUNCHES)
+        ps = BatchScheduler(graph, engine="partitioned", n_workers=SERVE_WORKERS, mode=mode)
+        check_served(ps.run(wl, warm=True), f"partitioned {mname}")
+        d = timed_flush(ps, wl, f"p-{mname}")
+        d["caches"] = ps.cache_report()
+        d["launches"] = {k: HK.LAUNCHES[k] - mark[k] for k in HK.LAUNCHES}
+        d["check"] = check_drains(ps, BatchScheduler(graph, engine="auto", mode=mode), wl,
+                                  f"partitioned {mname}")
+        d.pop("counts")
+        partitioned[mname] = d
+        del ps
+        graph.__dict__.pop("_partition_dev_cache", None)
+        free_memory()
+
     # ---- open-loop replay at the CLI's default rate
     mark = dict(HK.LAUNCHES)
     rsched = BatchScheduler(graph)
@@ -1141,28 +1446,31 @@ def phase_serve(graph) -> dict:
     free_memory()
 
     launches = dict(HK.LAUNCHES)  # read just after the drains
-    missing = [k for k in ("fused_hop_cols", "scatter_cols") if launches[k] == 0]
+    missing = [k for k in ("fused_hop_cols", "scatter_cols") if launches[k] == 0
+               or any(partitioned[m]["launches"][k] == 0 for m in partitioned)]
     if missing:
         raise AssertionError(f"serve: the drains never launched {missing}")
     log(f"serve: launches over the drains and their check flushes: {launches} (bucket "
         f"{bucket['launches']}, static {static['launches']}, replay {replay['launches']})")
 
-    # ---- the CLI a user starts, on a small graph
-    t0 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.query"] + SERVE_CLI,
-                         cwd=ROOT, capture_output=True, text=True, timeout=600,
-                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    cli_s = time.perf_counter() - t0
-    if cli.returncode != 0 or "verification vs oracle: OK" not in cli.stdout:
-        raise AssertionError(f"serve: the CLI failed (rc {cli.returncode}): "
-                             f"{cli.stdout[-800:]} {cli.stderr[-1500:]}")
-    log(f"serve: python -m repro_torch.launch.query {' '.join(SERVE_CLI)}: rc 0, "
-        f"verification vs oracle: OK ({cli_s:.1f}s)")
+    # ---- the CLI a user starts, on a small graph, on each engine choice
+    clis = []
+    for argv in (SERVE_CLI, SERVE_CLI + ["--engine", "partitioned"]):
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.query"] + argv,
+                             cwd=ROOT, capture_output=True, text=True, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        cli_s = time.perf_counter() - t0
+        if cli.returncode != 0 or "verification vs oracle: OK" not in cli.stdout:
+            raise AssertionError(f"serve: the CLI failed (rc {cli.returncode}): "
+                                 f"{cli.stdout[-800:]} {cli.stderr[-1500:]}")
+        log(f"serve: python -m repro_torch.launch.query {' '.join(argv)}: rc 0, "
+            f"verification vs oracle: OK ({cli_s:.1f}s)")
+        clis.append(dict(argv=argv, rc=cli.returncode, seconds=cli_s))
     for d in (bucket, static):
         d.pop("counts")
-    info.update(bucket=bucket, static=static, replay=replay, launches=launches,
-                cli=dict(argv=SERVE_CLI, rc=cli.returncode, seconds=cli_s),
-                wall_s=time.perf_counter() - t_phase)
+    info.update(bucket=bucket, static=static, partitioned=partitioned, replay=replay,
+                launches=launches, cli=clis, wall_s=time.perf_counter() - t_phase)
     log(f"serve: phase {info['wall_s']:.1f}s")
     return info
 
@@ -1907,8 +2215,11 @@ def main(argv=None) -> int:
     kernels.append(warp_entry(graph, jobs))
     rec.inputs.clear()            # the kernels phase's operands: not the server's memory
     free_memory()
+    REPORT["partitioned"], part_kernels = phase_partitioned(graph, jobs,
+                                                           REPORT["main"]["rows"])
+    kernels += part_kernels
     REPORT["serve"] = phase_serve(graph)
-    for e in kernels:             # B1 and B3's launches on the serve path
+    for e in kernels[:len(kernels) - len(part_kernels)]:   # B1/B3 on the serve path
         base = e["name"].split("[")[0]
         if base in REPORT["serve"]["launches"]:
             e["serve_launches"] = REPORT["serve"]["launches"][base]

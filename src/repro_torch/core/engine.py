@@ -26,7 +26,9 @@ dead-code elimination).  The executors build it only where a consumer needs
 it: the unfused hop, an ETR hop's delivery, the next hop's ETR prefix sums,
 and the ETR-at-join contraction.
 
-``execute()`` routes between dense and sliced (``engine_sliced.py``).
+``execute()`` routes between dense and sliced (``engine_sliced.py``); the
+partitioned executor (``engine_partitioned.py``) plugs its own segment runner
+into ``execute_plan``.
 """
 from __future__ import annotations
 
@@ -209,9 +211,16 @@ def pbases(qry: Q.PathQuery):
 
 
 def execute_plan(gdev, qry: Q.PathQuery, split: int, mode: int, n_buckets: int,
-                 params, bedges, impl: str = "torch") -> ExecOutput:
-    """Dense plan execution for a batch of same-shape queries (``params``
-    int32 [Q, n_clauses, 3]).  All query structure is Python-static."""
+                 params, bedges, impl: str = "torch",
+                 segment_runner=None) -> ExecOutput:
+    """Plan execution for a batch of same-shape queries (``params`` int32
+    [Q, n_clauses, 3]).  All query structure is Python-static.
+
+    ``segment_runner`` (default: the dense ``run_segment``) lets another
+    executor reuse the split/join skeleton, as the partitioned one does.  It
+    is called as ``run_segment`` is, without ``gdev``, ``bedges`` and
+    ``impl``, plus ``need_final_e``; it must return a ``SegmentResult`` in
+    GLOBAL vertex/traversal-edge space."""
     n = qry.n_vertices
     assert 0 <= split < n
     pv, pe = pbases(qry)
@@ -222,6 +231,8 @@ def execute_plan(gdev, qry: Q.PathQuery, split: int, mode: int, n_buckets: int,
     etr_at_join = 0 < split < n - 1 and qry.e_preds[split].etr_op != -1
 
     def runner(*a, **kw):
+        if segment_runner is not None:
+            return segment_runner(*a, need_final_e=etr_at_join, **kw)
         return run_segment(gdev, *a, bedges=bedges, impl=impl,
                            need_final_e=etr_at_join, **kw)
 

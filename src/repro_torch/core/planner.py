@@ -51,9 +51,8 @@ with the port's hop-delivery lowerings: ``'torch'`` (plain ops, the
 reference's ``'xla'``) and ``'cuda'`` (the hand-written hop kernels, the
 reference's ``'pallas'``).  Fitted coefficients live in the port's own
 ``configs/cost_coeffs.json`` (``scripts/torch_fit_cost_model.py`` writes it
-on the card).  The distribution-aware terms need the partitioned executor,
-which the port does not have yet (ROADMAP A7): θ_net and θ_net_etr keep
-their defaults, and a ``partitioning`` raises.
+on the card), θ_net and θ_net_etr included (fitted from the port's
+``engine_partitioned.measure_supersteps``).
 """
 from __future__ import annotations
 
@@ -309,9 +308,10 @@ def estimate_segment(
 class Planner:
     def __init__(self, graph, stats: GraphStats, coeffs: Optional[dict] = None,
                  partitioning=None):
-        """``partitioning`` (the reference's distribution-aware costs) needs
-        the partitioner and the partitioned executor, which are not ported
-        yet (ROADMAP A7): it must be None."""
+        """``partitioning``: an optional graphdata.partitioner.Partitioning
+        (or PartitionArrays); when given, plan costs are per-worker makespans
+        including the θ_net structural-exchange term from the partitioner's
+        halo ghost counts."""
         self.g = graph
         self.stats = stats
         self.coeffs = coeffs or load_coeffs()
@@ -320,9 +320,14 @@ class Planner:
         self.exchange_volume = 0.0
         self.etr_exchange_volume = 0.0
         if partitioning is not None:
-            raise NotImplementedError(
-                "distribution-aware planning needs the partitioned executor, "
-                "which is not ported yet (ROADMAP A7)")
+            arrays = partitioning
+            if not hasattr(arrays, "exchange_volume"):  # a Partitioning
+                from ..graphdata.partitioner import build_partition_arrays
+                arrays = build_partition_arrays(graph, partitioning)
+            self.n_workers = int(arrays.n_workers)
+            self.cut_frac = float(arrays.stats.get("edge_cut", 0.0))
+            self.exchange_volume = float(arrays.exchange_volume())
+            self.etr_exchange_volume = float(arrays.etr_exchange_volume())
         # traversal arrivals per vertex type (edge extent of a typed hop)
         deg = graph.in_degree.astype(np.int64) + graph.out_degree.astype(np.int64)
         self.trav_arrivals_by_type = np.zeros(graph.n_vertex_types, np.int64)

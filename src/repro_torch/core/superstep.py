@@ -1,10 +1,12 @@
 """Shared superstep core — the hop primitives the executors build on, in torch.
 
-The port of the reference package's ``core/superstep.py``.  Two executors use
+The port of the reference package's ``core/superstep.py``.  Three executors use
 it in this package:
 
   engine.py             dense executor  — whole-graph tensor supersteps
   engine_sliced.py      sliced executor — type-slice extents per hop
+  engine_partitioned.py partitioned executor — per-worker shards with a
+                        point-to-point boundary exchange
 
   predicate evaluation   eval_predicate()        — type ∧ folded clauses over
                                                    property columns, returning
@@ -22,6 +24,11 @@ it in this package:
                                                    segment-reduce, never
                                                    materialising [Q, E, *TS])
   extremum channel       minmax_seed(), minmax_edge(), deliver_extremum()
+  boundary exchange      exchange_plan(),
+                         p2p_exchange()          — ragged all-to-all over the
+                                                   partitioner's lane tables
+  ETR summaries          etr_local_summaries()   — per-edge rank summaries
+                                                   from segment-local prefixes
   joins                  join_interval_counts(), join_interval_counts_edges()
 
 Temporal modes:
@@ -362,6 +369,123 @@ def cells_to_buckets(state):
 
 
 # =========================================================================
+# point-to-point boundary exchange (the partitioned executor's collective)
+# =========================================================================
+def exchange_plan(local_src, send_slot, recv_slot, n_rows: int, n_slots: int,
+                  distributed: bool = False, out_pos=None,
+                  n_out: Optional[int] = None) -> dict:
+    """The index arithmetic of one exchange channel, computed once per table
+    set (``p2p_exchange``'s arguments; ``n_rows`` = K, the owner-local rows
+    a worker sends from).  Only real entries are listed: a pad is never
+    read or written.
+
+    In one process (``distributed`` false) every lane's send and receive
+    ends are composed, so the whole exchange is one gather from the owners'
+    rows and one placement: the k-th row worker s sends to d
+    (``send_slot[s, d, k]``) lands at ``recv_slot[d, s, k]``, which is the
+    transpose of the two worker axes.  Distributed, the send side fills the
+    padded [Wl, W, C] payload and the receive side places from the
+    [Wl_dst, W_src, C] one an all-to-all delivered.
+
+    ``out_pos`` (int [Wl·n_slots]) sends receive position d·n_slots + n to
+    row ``out_pos[...]`` of a flat output of ``n_out`` rows instead (the
+    partitioned executor places ETR summaries straight at its real owned
+    edges)."""
+    Wl, W, C = send_slot.shape
+    dev = send_slot.device
+    K, N = n_rows, n_slots
+    d, n = torch.nonzero(local_src < K, as_tuple=True)
+    plan = dict(local_dst=d * N + n, local_src=d * K + local_src[d, n].long())
+    dd, ss, kk = torch.nonzero(recv_slot < N, as_tuple=True)
+    recv_dst = dd * N + recv_slot[dd, ss, kk].long()
+    if not distributed:
+        src = ss * K + send_slot[ss, dd, kk].long()
+        plan.update(dst=torch.cat([plan.pop("local_dst"), recv_dst]),
+                    src=torch.cat([plan.pop("local_src"), src]))
+    else:
+        i, j, k = torch.nonzero(send_slot < K, as_tuple=True)
+        plan.update(send_pos=(i * W + j) * C + k,
+                    send_src=i * K + send_slot[i, j, k].long(),
+                    recv_dst=recv_dst, recv_pos=(dd * W + ss) * C + kk)
+    if out_pos is None:
+        n_out = Wl * N
+    else:
+        out_pos = out_pos.to(dev).long()
+        for key in ("dst", "local_dst", "recv_dst"):
+            if key in plan:
+                plan[key] = out_pos[plan[key]]
+    plan.update(n_out=n_out, out_pos=out_pos is not None, W=W, C=C)
+    return plan
+
+
+def p2p_exchange(rows_w, local_src, send_slot, recv_slot, n_slots: int,
+                 group=None, fill: float = 0.0, plan=None):
+    """Ragged all-to-all over the worker axis — the boundary exchange.
+
+    Every receive-buffer entry (a halo vertex's state, or an owned edge's
+    ETR rank summary) lives with exactly ONE owner.  The partitioner's
+    routing tables split them into a local copy (entries the receiver owns
+    itself) and one ragged lane per worker pair carrying just the ghost
+    entries — so only ghost entries move, with no global [V]/[2E] buffer and
+    no reduction (ownership is exclusive: the exchange is a copy).
+
+      rows_w     [Q, Wl, K, *TS]  owner-local source rows of this process's
+                                  workers (Wl = W in the simulation)
+      local_src  int [Wl, N]      own-row slot per self-owned receive entry,
+                                  pad = K (the entry keeps ``fill``)
+      send_slot  int [Wl, W, C]   own-row slot of the k-th row local worker i
+                                  sends to GLOBAL worker d, pad = K
+      recv_slot  int [Wl, W, C]   receive-buffer position where the k-th row
+                                  from GLOBAL worker s lands, pad = N
+      n_slots    N                receive-buffer extent
+
+    Returns [Q, Wl, N, *TS] (or [Q, n_out, *TS] under a ``plan`` made with
+    ``out_pos``); entries nobody sends hold ``fill``.  With ``group`` unset
+    every worker is in this process and the exchange is one gather and one
+    placement over the composed lanes (``exchange_plan``).  With a
+    ``torch.distributed`` group of R ranks, each holding W / R consecutive
+    workers, the padded payload [Wl, W, C, *TS] moves with one
+    ``all_to_all_single``.  Both are pure data movement over identical
+    tables, so they agree bit for bit.  Placement is ``index_copy_`` on
+    unique positions (each entry has one owner), so it is deterministic.
+    ``plan`` is ``exchange_plan`` of the same tables, precomputed.
+    """
+    nq, Wl, K = rows_w.shape[:3]
+    ts = tuple(rows_w.shape[3:])
+    if plan is None:
+        plan = exchange_plan(local_src, send_slot, recv_slot, K, n_slots,
+                             distributed=group is not None)
+    rows = rows_w.reshape((nq, Wl * K) + ts)
+    out = torch.full((nq, plan["n_out"]) + ts, fill, dtype=rows_w.dtype,
+                     device=rows_w.device)
+    if group is None:
+        out.index_copy_(1, plan["dst"], rows.index_select(1, plan["src"]))
+    else:
+        import torch.distributed as dist
+
+        W, C = plan["W"], plan["C"]
+        R = dist.get_world_size(group)
+        out.index_copy_(1, plan["local_dst"], rows.index_select(1, plan["local_src"]))
+        payload = torch.full((nq, Wl * W * C) + ts, fill, dtype=rows_w.dtype,
+                             device=rows_w.device)
+        payload.index_copy_(1, plan["send_pos"], rows.index_select(1, plan["send_src"]))
+        # [Q, Wl_src, R, Wl_dst, C] -> [R_dst, Q, Wl_src, Wl_dst, C]
+        q = payload.reshape((nq, Wl, R, Wl, C) + ts).movedim(2, 0).contiguous()
+        del payload
+        got = torch.empty_like(q)
+        dist.all_to_all_single(got, q, group=group)
+        del q
+        # [R_src, Q, Wl_src, Wl_dst, C] -> [Q, Wl_dst, W_src, C]
+        recv = got.permute((1, 3, 0, 2, 4) + tuple(range(5, 5 + len(ts))))
+        recv = recv.reshape((nq, Wl * W * C) + ts)
+        del got
+        out.index_copy_(1, plan["recv_dst"], recv.index_select(1, plan["recv_pos"]))
+    if plan["out_pos"]:
+        return out
+    return out.reshape((nq, Wl, n_slots) + ts)
+
+
+# =========================================================================
 # delivery
 # =========================================================================
 def deliver(cnt_e, ptr, num_segments: int, impl: str = "torch"):
@@ -396,6 +520,7 @@ def fused_hop_deliver(
     bedges,
     mch=None,                    # optional extremum channel table [Q, N]
     minmax_op: int = Q.AGG_MIN,
+    workers=None,                # HK.WorkerCSR: every worker's CSR at once
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One fused traversal hop: gather → temporal mask → segment-reduce.
 
@@ -408,6 +533,11 @@ def fused_hop_deliver(
     Edge weights that do not depend on the query are computed once and
     broadcast over the query axis (the kernels read them with query stride 0).
 
+    With ``workers`` (the partitioned executor) the edges are every worker's
+    real owned edges, ``state`` the workers' halo tables stacked worker-major
+    and the destinations the workers' owned slots; ``ptr`` is then unused
+    (the layout carries the flattened CSR) and the hop is still one launch.
+
     Returns (arrivals [Q, num_segments, *TS], mch_out [Q, num_segments] | None).
     """
     nq = state.shape[0]
@@ -417,6 +547,7 @@ def fused_hop_deliver(
         evalid = None if evalid is None else evalid[:1]
     op_is_min = minmax_op == Q.AGG_MIN
     neutral = float("inf") if op_is_min else float("-inf")
+    csr = ptr if workers is None else workers
     src_slot = src_slot.to(torch.int32).contiguous()
     state = state.contiguous()
     if mch is not None:
@@ -427,9 +558,9 @@ def fused_hop_deliver(
         w = wmask.to(F32)
         if shared:
             w, sb, eb = (x.expand(nq, -1) for x in (w, sb, eb))
-        arrivals, mch_out = HK.fused_hop_interval(
-            state, src_slot, w, sb, eb, ptr, mch=mch, neutral=neutral,
-            op_is_min=op_is_min)
+        hop = HK.fused_hop_interval if workers is None else HK.fused_hop_interval_workers
+        arrivals, mch_out = hop(state, src_slot, w, sb, eb, csr, mch=mch,
+                                neutral=neutral, op_is_min=op_is_min)
     else:
         N = state.shape[1]
         ts = tuple(state.shape[2:])
@@ -440,9 +571,9 @@ def fused_hop_deliver(
             w = (wmask[..., None] & evalid).to(F32)
         if shared:
             w = w.expand(nq, -1, -1)
-        out, mch_out = HK.fused_hop_cols(
-            state.reshape(nq, N, C), src_slot, w, ptr, mch=mch, neutral=neutral,
-            op_is_min=op_is_min)
+        hop = HK.fused_hop_cols if workers is None else HK.fused_hop_cols_workers
+        out, mch_out = hop(state.reshape(nq, N, C), src_slot, w, csr, mch=mch,
+                           neutral=neutral, op_is_min=op_is_min)
         arrivals = out.reshape((nq, num_segments) + ts)
     return arrivals, mch_out
 
@@ -536,6 +667,62 @@ def etr_needs_end(op: int, backward: bool) -> bool:
     """Does this ETR spec read the (dst, life-end)-ordered prefix table?"""
     _, terms = ETR_SPECS[(op, backward)]
     return any(t == 3 for _, t in terms)
+
+
+def etr_local_summaries(cnt_perm_s, cnt_perm_e, base, seg_len, ranks,
+                        op: int, backward: bool):
+    """Per-edge ETR rank summaries from SEGMENT-LOCAL prefix tables.
+
+    The contraction of ``etr_weighted`` only ever takes prefix DIFFERENCES
+    inside one arrival segment, so a worker owning whole segments can compute
+    it from prefix sums over just its own prev-hop counts: this is that
+    local step, and its outputs are exactly the per-edge values the
+    partitioned executor exchanges (boundary rank summaries) on ETR hops.
+
+      cnt_perm_s  [Q, Wl, K, *TS] owned prev-hop counts in (dst, life-start)
+                                  order, per worker
+      cnt_perm_e  [Q, Wl, K, *TS] same in (dst, life-end) order; None when
+                                  ``not etr_needs_end(op, backward)``
+      base        int [Wl, S]     local prefix index of each produced edge's
+                                  source-segment base (0 <= base <= K)
+      seg_len     int [Wl, S]     that segment's length (base + len <= K)
+      ranks       int [Wl, 4, S]  the global rank tables at the produced
+                                  edges (within-segment offsets)
+
+    Returns [Q, Wl, S, *TS]; pad rows (base = len = ranks = 0) give 0.  The
+    prefix scans run over the innermost axis of a [Q, Wl, C, K] copy (the
+    reason is ``prefix_table``'s)."""
+    alpha, terms = ETR_SPECS[(op, backward)]
+    nq, Wl, K = cnt_perm_s.shape[:3]
+    ts = tuple(cnt_perm_s.shape[3:])
+    S = base.shape[1]
+
+    def table(c):
+        cols = c.reshape(nq, Wl, K, -1).transpose(2, 3).contiguous()
+        P = cols.new_empty(cols.shape[:3] + (K + 1,))
+        P[..., 0] = 0
+        P[..., 1:] = torch.cumsum(cols, dim=3)
+        return P                                    # [Q, Wl, C, K + 1]
+
+    S_s = table(cnt_perm_s)
+    del cnt_perm_s
+    S_e = table(cnt_perm_e) if cnt_perm_e is not None else None
+    del cnt_perm_e
+    Cn = S_s.shape[2]
+
+    def at(P, idx):
+        return P.gather(3, idx.long()[None, :, None, :].expand(nq, Wl, Cn, S))
+
+    base_s = at(S_s, base)
+    out = None
+    if alpha:
+        out = (at(S_s, base + seg_len) - base_s) * alpha
+    for sign, term in terms:
+        P = S_e if term == 3 else S_s
+        b0 = at(S_e, base) if term == 3 else base_s
+        val = (at(P, base + ranks[:, term]) - b0) * sign
+        out = val if out is None else out + val
+    return out.transpose(2, 3).contiguous().reshape((nq, Wl, S) + ts)
 
 
 # =========================================================================

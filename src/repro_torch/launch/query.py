@@ -11,9 +11,10 @@ goes through the batch-scheduler runtime (``run_workload_scheduled`` /
 
 The port of the reference package's ``launch/query.py``.  It runs on the
 card unless ``--device cpu`` is given (with no GPU it raises otherwise), on
-the hop kernels (``impl='cuda'``).  Live-graph serving (``--live``,
-``--wal``; ROADMAP A8) and the partitioned engine (``--engine
-partitioned``; ROADMAP A7) are not ported yet and exit with a message.
+the hop kernels (``impl='cuda'``).  ``--engine partitioned`` serves through
+the partitioned executor over ``--workers`` workers (with ``--serve`` or
+``--replay``).  Live-graph serving (``--live``, ``--wal``; ROADMAP A8) is
+not ported yet and exits with a message.
 """
 from __future__ import annotations
 
@@ -111,7 +112,7 @@ class GraniteServer:
 
     def run_workload_scheduled(self, workload: List[QueryInstance],
                                engine: str = "auto", warm: bool = True,
-                               tracer=None, metrics=None):
+                               tracer=None, metrics=None, n_workers: int = 4):
         """Serve the workload through the batch-scheduler runtime (one
         batched call per shape group, no fallbacks).  Returns
         ``serving.ServedResult`` records in submission order; the scheduler
@@ -123,7 +124,7 @@ class GraniteServer:
                                use_planner=self.use_planner,
                                budget_s=self.budget_s,
                                tracer=tracer, metrics=metrics,
-                               device=self.device)
+                               device=self.device, n_workers=n_workers)
         self.scheduler = sched
         return sched.run(workload, warm=warm)
 
@@ -149,6 +150,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="--replay arrival rate (queries/s)")
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "dense", "sliced", "partitioned"])
+    ap.add_argument("--workers", type=int, default=4,
+                    help="workers of --engine partitioned")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the card, the default) or 'cpu'")
     ap.add_argument("--live", action="store_true",
@@ -164,9 +167,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.live or args.wal:
         raise SystemExit("--live/--wal: live-graph serving is not ported yet "
                          "(ROADMAP A8)")
-    if args.engine == "partitioned":
-        raise SystemExit("--engine partitioned: the partitioned engine is not "
-                         "ported yet (ROADMAP A7)")
 
     params = LdbcParams(n_persons=args.persons, degree_dist=args.dist,
                         dynamic=args.dynamic)
@@ -197,7 +197,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         sched = BatchScheduler(g, engine=args.engine,
                                use_planner=not args.no_planner,
                                tracer=tracer, metrics=metrics,
-                               device=server.device)
+                               device=server.device, n_workers=args.workers)
         rep = replay_workload(sched, wl, rate_qps=args.rate, seed=args.seed,
                               warm=True)
         for k, v in rep.as_dict().items():
@@ -207,7 +207,8 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     if args.serve:
         recs = server.run_workload_scheduled(wl, engine=args.engine,
-                                             tracer=tracer, metrics=metrics)
+                                             tracer=tracer, metrics=metrics,
+                                             n_workers=args.workers)
         _finish_obs()
     else:
         recs = server.run_workload(wl, verbose=True)

@@ -60,7 +60,8 @@ def graph_fingerprint(graph) -> str:
     return fp
 
 
-def layout_signature(graph, engine: str, qry, impl: str) -> tuple:
+def layout_signature(graph, engine: str, qry, impl: str,
+                     n_workers: int = 0) -> tuple:
     """The static hop-kernel launch identity an executable binds.
 
     On the kernel path (``impl='cuda'``) the hop kernels B1 and B3 walk an
@@ -69,12 +70,22 @@ def layout_signature(graph, engine: str, qry, impl: str) -> tuple:
     shape on the host (``kernels.common.lane_group``; one lane an edge).
     Those shapes are part of the dispatch key: two graphs may share a
     content fingerprint yet be served by different launch shapes only if
-    the key says so.  ``impl='torch'`` binds nothing: ``()``."""
+    the key says so.  On the partitioned engine the kernels walk every
+    worker's local CSR flattened into one over the real owned edges
+    (``kernels.hop_scatter.WorkerCSR``): its shapes and lane group, for
+    ``n_workers``.  Building the signature warms the graph's partition
+    cache, as the executable will read it.  ``impl='torch'`` binds nothing:
+    ``()``."""
     if impl == "torch":
         return ()
     if engine == "partitioned":
-        raise NotImplementedError(
-            "the partitioned engine is not ported yet (ROADMAP A7)")
+        from ..core import engine_partitioned as _EP
+
+        _, arrays = _EP.partition_for(graph, n_workers)
+        W, n_dst = arrays.n_workers, arrays.n_workers * arrays.v_max
+        n_real = int(arrays.n_edges.sum())
+        return ("worker_csr", W, (n_real,), (n_dst + 1,),
+                lane_group(n_real, n_dst, 1))
     n_v = graph.n_vertices
     n_e = int(graph.traversal["arr_ptr"][-1])
     if engine == "sliced":

@@ -47,7 +47,7 @@ with a structured error while the rest of the batch still answers).
 The port's copy of the reference package's ``serving/faults.py``.  The
 ``wal`` point and ``TornWriteError`` serve the live-graph event log, which
 is not ported yet (ROADMAP A8); the ``worker`` point serves the partitioned
-engine (ROADMAP A7).
+engine (``core/engine_partitioned.py``).
 """
 from __future__ import annotations
 

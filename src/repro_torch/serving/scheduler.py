@@ -15,11 +15,13 @@ moves:
             (COUNT/MIN/MAX) batch exactly like plain counts — there is no
             per-query fallback path in this runtime.
 
-Engines: ``dense`` / ``sliced`` (``core/engine.batch_executable``), or
-``auto`` (sliced when the query qualifies, dense otherwise — resolved at
-admission so the group key is concrete).  The reference's ``partitioned``
-engine is not ported yet (ROADMAP A7): asking for it raises, and so does
-``pin_epoch`` (live graphs, ROADMAP A8).
+Engines: ``dense`` / ``sliced`` (``core/engine.batch_executable``),
+``partitioned`` (``core/engine_partitioned.batch_executable`` over
+``n_workers`` workers, simulated on one device: one dispatch runs
+batch × workers with the point-to-point boundary exchange between
+supersteps), or ``auto`` (sliced when the query qualifies, dense otherwise —
+resolved at admission so the group key is concrete).  ``pin_epoch`` (live
+graphs) is not ported yet and raises (ROADMAP A8).
 
 Hop-delivery lowering: the ``impl`` knob (``HOP_IMPLS``) pins every group on
 one lowering — ``'cuda'``, the hand-written hop kernels (the default), or
@@ -98,6 +100,7 @@ import numpy as np
 import torch
 
 from ..core import engine as E
+from ..core import engine_partitioned as EP
 from ..core import engine_sliced as ES
 from ..core import query as Q
 from ..core.planner import HOP_IMPL_CHOICES, Planner, coeff_vector
@@ -111,7 +114,7 @@ from .cache import (ExecutableCache, PlanCache, graph_fingerprint,
                     layout_signature)
 from .compile import bucket_key, compile_plan_tensor
 from .faults import (CompileError, FaultError, FaultPlan, PoisonQueryError,
-                     RetryPolicy, TransientDispatchError)
+                     RetryPolicy, TransientDispatchError, WorkerLostError)
 from .telemetry import TelemetryBuffer
 
 ENGINES = ("auto", "dense", "sliced", "partitioned")
@@ -171,6 +174,7 @@ class GroupDispatch:
     #: CUDA-event time of the timed call on the card (None on the CPU or
     #: with an injected dispatcher)
     event_ms: Optional[float] = None
+    fallback_from: str = ""      # engine the unit was re-planned away from
 
 
 def _host(x) -> np.ndarray:
@@ -212,12 +216,10 @@ class BatchScheduler:
         fault_plan: Optional[FaultPlan] = None,
         retry: Optional[RetryPolicy] = None,
         device=None,
+        n_workers: int = 4,
     ):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}")
-        if engine == "partitioned":
-            raise NotImplementedError(
-                "the partitioned engine is not ported yet (ROADMAP A7)")
         if impl not in HOP_IMPLS:
             raise ValueError(f"impl must be one of {HOP_IMPLS}")
         self.device = resolve_device(device)
@@ -225,6 +227,7 @@ class BatchScheduler:
         self.engine = engine
         self.impl = impl
         self.n_buckets = n_buckets
+        self.n_workers = n_workers
         self.use_planner = use_planner
         self.budget_s = budget_s
         self.keep_outputs = keep_outputs
@@ -237,6 +240,7 @@ class BatchScheduler:
         self.exec_cache = exec_cache if exec_cache is not None else ExecutableCache()
         self._stats = GraphStats(graph, n_time_buckets=n_buckets)
         self._planner = Planner(graph, self._stats)
+        self._planner_part: Optional[Planner] = None  # built on first use
         self._queue: List[QueueEntry] = []
         self.last_dispatches: List[GroupDispatch] = []
         self.n_dispatched = 0
@@ -256,6 +260,9 @@ class BatchScheduler:
         self.n_retries = 0
         self.n_quarantined = 0
         self.n_timeout = 0
+        self.n_fallbacks = 0
+        self._flush_count = 0
+        self._part_down_until = -1   # flush count the partitioned probe waits for
         # ---- observability (tracer defaults to the no-op singleton)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics
@@ -286,10 +293,7 @@ class BatchScheduler:
             self._mx_quarantined = metrics.counter(
                 "granite_quarantined_total",
                 "queries rejected as poison after bisection")
-            # the metric schema's degraded-dispatch series counts units
-            # re-planned off the partitioned path; it stays 0 until that
-            # engine is ported (ROADMAP A7)
-            metrics.counter(
+            self._mx_degraded_disp = metrics.counter(
                 "granite_degraded_dispatches_total",
                 "units re-planned off the partitioned path",
                 labelnames=("reason",))
@@ -364,14 +368,21 @@ class BatchScheduler:
 
     # ------------------------------------------------------------- planning
     def _planner_for(self, engine: str) -> Planner:
-        """The planner a group on ``engine`` is costed with (one planner: the
-        distribution-aware one belongs to the partitioned engine)."""
-        return self._planner
+        """The planner a group on ``engine`` is costed with: the
+        distribution-aware one (θ_net exchange terms from the partitioning
+        the executor will run on) for the partitioned engine."""
+        if engine != "partitioned":
+            return self._planner
+        if self._planner_part is None:
+            _, arrays = EP.partition_for(self.graph, self.n_workers)
+            self._planner_part = Planner(self.graph, self._stats,
+                                         partitioning=arrays)
+        return self._planner_part
 
     def _plan_key(self, bucket: tuple, mode: int, engine: str,
                   impl_choice: str) -> tuple:
         return (bucket, self.fingerprint, mode, engine, self.n_buckets,
-                impl_choice)
+                self.n_workers if engine == "partitioned" else 0, impl_choice)
 
     def _plan_group(self, queries: List[Q.PathQuery], bucket: tuple,
                     mode: int, engine: str,
@@ -402,6 +413,10 @@ class BatchScheduler:
     # ------------------------------------------------------------- dispatch
     def _build_executable(self, qry: Q.PathQuery, split: int, mode: int,
                           engine: str, impl: str):
+        if engine == "partitioned":
+            return EP.batch_executable(self.graph, qry, split, mode,
+                                       self.n_buckets, self.n_workers,
+                                       impl=impl, device=self.device)
         return E.batch_executable(self.graph, qry, split, mode,
                                   self.n_buckets,
                                   sliced=(engine == "sliced"), impl=impl,
@@ -418,9 +433,11 @@ class BatchScheduler:
         timed on the injected clock after the card has finished.  Swapped
         out wholesale by an injected ``dispatcher``.  Returns (output,
         seconds, exec_cached, CUDA-event ms or None)."""
+        n_workers = self.n_workers if engine == "partitioned" else 0
         ekey = (engine, self.fingerprint, bucket, split, mode,
-                self.n_buckets, impl,
-                layout_signature(self.graph, engine, queries[0], impl),
+                self.n_buckets, n_workers, impl,
+                layout_signature(self.graph, engine, queries[0], impl,
+                                 n_workers),
                 pt.params.shape[0])
         exec_cached = ekey in self.exec_cache
         run = self.exec_cache.get_or_build(
@@ -457,8 +474,8 @@ class BatchScheduler:
         ``dispatcher`` (FakeDispatcher) run through, so a ``FaultPlan``
         exercises identical failure surfaces with no engine call.
         Consultation order: poison (deterministic per-query) → "compile" →
-        "dispatch" → real call → "straggler" (service-time inflation,
-        accounted not slept)."""
+        "worker" (partitioned only) → "dispatch" → real call → "straggler"
+        (service-time inflation, accounted not slept)."""
         plan = self.fault_plan
         if plan is not None:
             if plan.poison is not None and any(plan.is_poison(q)
@@ -469,6 +486,10 @@ class BatchScheduler:
                 raise CompileError(
                     f"injected compile failure (engine={engine}, "
                     f"impl={impl}, split={split})")
+            if engine == "partitioned" and plan.should_fail("worker"):
+                raise WorkerLostError(
+                    f"injected partition-worker loss "
+                    f"(n_workers={self.n_workers})")
             if plan.should_fail("dispatch"):
                 raise TransientDispatchError(
                     "injected transient dispatch error")
@@ -523,7 +544,7 @@ class BatchScheduler:
     def _record_telemetry(self, feats: np.ndarray, engine: str,
                           dt: float) -> float:
         """One (features, predicted, measured) telemetry row per timed
-        dispatch; periodic online θ refit updates the live planner (and
+        dispatch; periodic online θ refit updates the live planners (and
         clears the plan cache once, so stale split choices re-plan against
         the new coefficients)."""
         planner = self._planner_for(engine)
@@ -532,6 +553,8 @@ class BatchScheduler:
         if self.telemetry.should_refit():
             new = self.telemetry.refit(planner.coeffs)
             self._planner.coeffs.update(new)
+            if self._planner_part is not None:
+                self._planner_part.coeffs.update(new)
             self.plan_cache.clear()
             if self.metrics is not None:
                 self._mx_refit.inc()
@@ -655,6 +678,7 @@ class BatchScheduler:
         out: List[Optional[ServedResult]] = [None] * len(queue)
         dispatches: List[GroupDispatch] = []
         traced_groups: List[tuple] = []
+        self._flush_count += 1
         # the retry state machine runs on the flush's VIRTUAL now: arrival
         # frame (what submit's ``now`` used) + accounted service so far —
         # deadline-aware retry budgets compare in the deadline's own frame
@@ -695,6 +719,11 @@ class BatchScheduler:
                       error=str(e))
         tr.end(sp)
 
+    def _count_fallback(self, reason: str) -> None:
+        self.n_fallbacks += 1
+        if self.metrics is not None:
+            self._mx_degraded_disp.inc(reason=reason)
+
     def _bisect(self, queue, out, key, idxs, warm, edf_pos, dispatches,
                 traced_groups, flush_now, retry_rng, depth) -> None:
         """Split a repeatedly-failing unit in half and serve each half
@@ -715,6 +744,16 @@ class BatchScheduler:
         machine (the historical one-attempt behaviour when no ``retry``
         policy is attached)."""
         bucket, mode, engine, impl_over = key
+        fallback_from = ""
+        # partitioned-path availability: while the planner holds the path
+        # down, units re-plan onto the dense executor (the same answers);
+        # once the probe window elapses the next unit probes the
+        # partitioned path for real
+        if (engine == "partitioned" and self.retry is not None
+                and not self._planner.engine_available("partitioned")
+                and self._flush_count < self._part_down_until):
+            fallback_from, engine = engine, "dense"
+            self._count_fallback("path-down")
         insts = [queue[i].inst for i in idxs]
         queries = [x.qry for x in insts]
         penalty_s = 0.0
@@ -734,6 +773,16 @@ class BatchScheduler:
                 if self.retry is None:
                     self._mark_unit(queue, out, idxs, engine, e, "failed")
                     return
+                if isinstance(e, WorkerLostError) and engine == "partitioned":
+                    # worker-loss degradation: mark the path down, re-plan
+                    # this unit dense (the same answers, conformance-pinned)
+                    self._planner.mark_unavailable("partitioned")
+                    self._part_down_until = (self._flush_count
+                                             + self.retry.probe_after)
+                    fallback_from, engine = engine, "dense"
+                    self._count_fallback("worker-loss")
+                    self._trace_fault(e, "fallback", attempt, idxs)
+                    continue
                 failures += 1
                 if (failures >= self.retry.max_group_failures
                         and len(idxs) > 1):
@@ -801,6 +850,9 @@ class BatchScheduler:
                 # sliced engine) must not take the rest of the flush with it
                 self._mark_unit(queue, out, idxs, engine, e, "failed")
                 return
+        if (engine == "partitioned"
+                and not self._planner.engine_available("partitioned")):
+            self._planner.mark_available("partitioned")  # probe succeeded
         seq = self._dispatch_seq
         self._dispatch_seq += 1
         feats = ests = None
@@ -850,7 +902,8 @@ class BatchScheduler:
         dispatches.append(GroupDispatch(
             key, engine, split, pt.n_real, pt.n_pad, dt_total, list(idxs),
             plan_cached, exec_cached, impl, group_deadline, predicted_ms,
-            n_retries=n_retries, penalty_s=penalty_s, event_ms=event_ms))
+            n_retries=n_retries, penalty_s=penalty_s, event_ms=event_ms,
+            fallback_from=fallback_from))
 
     def run(self, workload: Sequence[Union[QueryInstance, Q.PathQuery]],
             warm: bool = False) -> List[ServedResult]:
@@ -878,10 +931,12 @@ class BatchScheduler:
         return d
 
     def fault_report(self) -> dict:
-        """Retry/quarantine/timeout counters (all zero without a fault
+        """Retry/quarantine/degradation counters (all zero without a fault
         layer) plus the fault plan's consultation ledger."""
         d = dict(n_retries=self.n_retries, n_quarantined=self.n_quarantined,
-                 n_timeout=self.n_timeout)
+                 n_timeout=self.n_timeout, n_fallbacks=self.n_fallbacks,
+                 partitioned_available=self._planner.engine_available(
+                     "partitioned"))
         if self.fault_plan is not None:
             d["fault_plan"] = self.fault_plan.report()
         return d

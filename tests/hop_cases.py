@@ -68,3 +68,58 @@ def interval_case(seed: int, Q: int, N: int, V: int, B: int, shared_w: bool) -> 
         eb=rng.integers(0, B + 1, size=(wq, E)).astype(np.int32),
         ptr=ptr,
         mch=rng.integers(1, 500, size=(Q, N)).astype(np.float32))
+
+
+def worker_shards(ptr: np.ndarray, W: int, seed: int) -> dict:
+    """Cut a global CSR into W padded shards, as the partitioner lays out a
+    worker's owned edges: worker 1 owns the hub, worker W-1 two short runs
+    (so it is mostly pads).  Per worker: its destinations' runs in canonical
+    order, padded to the longest shard with pads on the trash segment
+    ``v_max``; ``eid`` the global edge of each slot (-1 for a pad) and
+    ``ptr_w`` the per-worker arrival pointers [W, v_max + 2]."""
+    V = ptr.shape[0] - 1
+    rng = np.random.default_rng(seed)
+    deg = np.diff(ptr)
+    owner = rng.integers(0, W, size=V)
+    owner[owner == W - 1] = 0
+    owner[[5, 13]] = W - 1                 # worker W-1: two short runs, mostly pads
+    owner[deg == deg.max()] = 1            # the hub
+    dests = [np.nonzero(owner == w)[0] for w in range(W)]
+    eruns = [np.concatenate([np.arange(ptr[v], ptr[v + 1]) for v in d] or [[]]).astype(np.int64)
+             for d in dests]
+    v_max = max(len(d) for d in dests)
+    e_max = max(len(e) for e in eruns)
+    dst_local = np.full((W, e_max), v_max, np.int32)
+    eid = np.full((W, e_max), -1, np.int64)
+    for w in range(W):
+        loc = np.repeat(np.arange(len(dests[w])), deg[dests[w]])
+        dst_local[w, :len(loc)] = loc
+        eid[w, :len(loc)] = eruns[w]
+    ptr_w = np.stack([np.searchsorted(dst_local[w], np.arange(v_max + 2))
+                      for w in range(W)]).astype(np.int32)
+    return dict(v_max=v_max, e_max=e_max, dst_local=dst_local, eid=eid, ptr_w=ptr_w,
+                real=np.nonzero(eid.reshape(-1) >= 0)[0])
+
+
+def edge_rows(sh, per_edge, fill):
+    """Per-edge values [..., E] -> padded [W, e_max, ...] (pads = fill)."""
+    x = np.moveaxis(np.asarray(per_edge), -1, 0)
+    out = np.full(sh["eid"].shape + x.shape[1:], fill, x.dtype)
+    real = sh["eid"] >= 0
+    out[real] = x[sh["eid"][real]]
+    return out
+
+
+def src_rows(sh, rng, R: int):
+    """Per-worker source rows into a table of R rows (R = the zero row), and
+    their flat form over the W tables stacked (W * R = the zero row)."""
+    W = sh["eid"].shape[0]
+    s = rng.integers(0, R + 1, size=(W, sh["e_max"])).astype(np.int32)
+    s[sh["eid"] < 0] = R
+    flat = np.where(s < R, np.arange(W)[:, None] * R + s, W * R).reshape(-1)
+    return s, flat[sh["real"]].astype(np.int32)
+
+
+def at_real(sh, x_w):
+    """Padded [W, e_max, ...] -> real-edge rows [E_real, ...]."""
+    return x_w.reshape((-1,) + x_w.shape[2:])[sh["real"]]

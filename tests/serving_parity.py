@@ -129,7 +129,7 @@ def results(res):
 def dispatches(sched):
     return [(d.key, d.engine, d.split, d.n_real, d.n_pad, d.service_s,
              d.indices, d.plan_cached, d.exec_cached, d.impl, d.deadline,
-             d.predicted_ms, d.n_retries, d.penalty_s)
+             d.predicted_ms, d.n_retries, d.penalty_s, d.fallback_from)
             for d in sched.last_dispatches]
 
 
@@ -155,8 +155,9 @@ def report(rep):
 
 
 def fault_report(sched):
-    """The fault counters both packages keep (the reference's partitioned
-    fallback counters belong to an engine the port does not have yet)."""
+    """The fault counters both packages keep (the reference's live-graph
+    counters belong to a path the port does not have yet)."""
     rep = sched.fault_report()
     return {k: rep[k] for k in ("n_retries", "n_quarantined", "n_timeout",
+                                "n_fallbacks", "partitioned_available",
                                 "fault_plan") if k in rep}

@@ -2,13 +2,16 @@
 package's.
 
 Every scenario of the reference's ``test_obs.py`` that needs neither the
-cost-model audit (``obs/audit.py``, not ported yet), the partitioned
-engine's profiler (ROADMAP A7) nor ``scripts/trace_report.py`` runs in both
+cost-model audit (``obs/audit.py``, not ported yet) nor
+``scripts/trace_report.py`` runs in both
 packages (``serving_parity``): the span trees — ids, parents, ticks and
 attributes — the metric snapshots and the Prometheus text must be equal,
 with the impl names mapped.  The real-dispatch leg runs the port alone: its
 answers with the recorder attached equal its answers without it, and each
-group's compile span reads the executable cache."""
+group's compile span reads the executable cache.  The partitioned
+executor's profiler (``measure_supersteps``) records the reference's span
+tree: the same nodes, workers and per-hop exchange volumes (its times are
+measured, so they differ)."""
 import json
 
 import numpy as np
@@ -365,3 +368,54 @@ def test_real_dispatch_span_trees_and_cache_spans(graphs):
         assert mx["granite_cache_total"].value(cache="executable", event="hit") == 2
         assert {r["attrs"]["impl"] for r in tr.records()
                 if r["name"] == "dispatch"} == {impl}
+
+
+# ==================================================== measure_supersteps
+@pytest.mark.parametrize("template,aggregate", [("Q2", False), ("Q4", False),
+                                                ("Q4", True)])
+def test_measure_supersteps_traced_exchange_channels(graphs, template, aggregate):
+    """The profiler's span tree (measure_supersteps → superstep per hop →
+    exchange) has the reference's nodes and per-hop channel volumes, which
+    follow the canonical ``hop_exchange_channels`` rule and sum to
+    ``query_exchange_volumes``."""
+    from repro.core import engine_partitioned as JEP
+    from repro.graphdata.queries import make_workload as j_make_workload
+    from repro.obs import StepClock as JStepClock, Tracer as JTracer
+    from repro.obs import span_trees as j_span_trees
+    from repro_torch.core import engine_partitioned as TEP
+
+    def tree(ns_span_trees, tr):
+        trees = ns_span_trees(tr.records())
+        assert len(trees) == 1
+        root = next(iter(trees.values()))
+        rows = []
+        for ss in root["children"]:
+            (ex,) = [c for c in ss["children"] if c["name"] == "exchange"]
+            assert ss["attrs"]["measured_ms"] > 0
+            rows.append((ss["name"], ss["attrs"]["hop"], ss["attrs"]["etr"],
+                         len(ss["attrs"]["per_worker_ms"]),
+                         {k: ex["attrs"][k] for k in ("state", "extremum", "etr")}))
+        a = root["attrs"]
+        return (root["name"], a["n_workers"], a["n_hops"], a["mode"], a["backward"],
+                a["total"], rows)
+
+    jq = j_make_workload(graphs["ref"], templates=(template,), n_per_template=1,
+                         seed=55, aggregate=aggregate)[0].qry
+    tq = make_workload(graphs["port"], templates=(template,), n_per_template=1,
+                       seed=55, aggregate=aggregate)[0].qry
+    jt, tt = JTracer(clock=JStepClock()), Tracer(clock=StepClock())
+    JEP.measure_supersteps(graphs["ref"], jq, n_workers=2, repeats=1, tracer=jt)
+    TEP.measure_supersteps(graphs["port"], tq, n_workers=2, repeats=1, tracer=tt,
+                           device="cpu")
+    got, want = tree(span_trees, tt), tree(j_span_trees, jt)
+    assert got == want
+    if aggregate:   # the profile runs the reversed segment; the rule below is
+        return      # stated for the query's own hop order
+    _, arrays = TEP.partition_for(graphs["port"], 2)
+    rows = TEP.hop_exchange_channels(tq, arrays)
+    assert [r[-1] for r in got[-1]] == rows
+    total = dict(state=0, extremum=0, etr=0)
+    for r in rows:
+        for k in total:
+            total[k] += r[k]
+    assert total == TEP.query_exchange_volumes(tq, arrays)

@@ -211,6 +211,43 @@ def test_fit_linear_equal_reference():
 
 
 def test_distribution_aware_planning_raises(pair):
+    """A partitioning must be a Partitioning or PartitionArrays: anything
+    else raises (the distribution-aware planner itself is held equal to the
+    reference's below)."""
     _, port_g, _, ts = pair("small_static_graph")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(AttributeError):
         TP.Planner(port_g, ts, coeffs=dict(TP.DEFAULT_COEFFS), partitioning=object())
+
+
+@pytest.mark.parametrize("w", [2, 4, 8])
+@pytest.mark.parametrize("coeffs", ["default", "fitted"])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_distribution_aware_estimates_equal_reference(pair, name, coeffs, w):
+    """``Planner(partitioning=...)``: per-worker extents, the θ_net and
+    θ_net_etr channel terms and the impl sweep equal the reference's float
+    for float (t_ms, m_net, channels, features), from a Partitioning and
+    from PartitionArrays alike."""
+    from repro.graphdata import partitioner as JPA
+    from repro_torch.graphdata import partitioner as TPA
+    ref_g, port_g, js, ts = pair(name)
+    c = dict(JP.DEFAULT_COEFFS) if coeffs == "default" else dict(COEFFS)
+    jpart = JPA.partition_graph(ref_g, n_workers=w, parts_per_type=max(4, w // 2))
+    tpart = TPA.partition_graph(port_g, n_workers=w, parts_per_type=max(4, w // 2))
+    jp = JP.Planner(ref_g, js, coeffs=c, partitioning=jpart)
+    tps = [TP.Planner(port_g, ts, coeffs=port_coeffs(c), partitioning=tpart),
+           TP.Planner(port_g, ts, coeffs=port_coeffs(c),
+                      partitioning=TPA.build_partition_arrays(port_g, tpart))]
+    for tp in tps:
+        assert (tp.n_workers, tp.cut_frac, tp.exchange_volume, tp.etr_exchange_volume) == \
+            (jp.n_workers, jp.cut_frac, jp.exchange_volume, jp.etr_exchange_volume)
+        for jq, tq in workload(ref_g):
+            for split in jp.enumerate_plans(jq):
+                for ji, ti in IMPLS:
+                    a, b = jp.estimate(jq, split, ji), tp.estimate(tq, split, ti)
+                    _same_estimate(a, b, (name, w, split, ti))
+                    assert [s.m_net for s in a.steps] == [s.m_net for s in b.steps]
+                    assert [s.channels for s in a.steps] == [s.channels for s in b.steps]
+            a = jp.choose(jq, impls=JP.HOP_IMPL_CHOICES)
+            b = tp.choose(tq, impls=TP.HOP_IMPL_CHOICES)
+            _same_estimate(a, b, (name, w))
+            _same_candidates(a.candidates, b.candidates, (name, w))

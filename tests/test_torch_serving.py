@@ -12,8 +12,8 @@ Three legs, all on the CPU:
   port's engines); steady state neither re-plans nor rebuilds.
 * **Virtual clock.**  Every scenario of the reference's
   ``test_serving_slo.py``, ``test_serving_faults.py`` and
-  ``test_serving_properties.py`` that needs neither the partitioned engine
-  (ROADMAP A7) nor live graphs (A8) runs through ``FakeDispatcher`` in both
+  ``test_serving_properties.py`` that needs no live graph (ROADMAP A8)
+  runs through ``FakeDispatcher`` in both
   packages (``serving_parity``): the same admit/degrade/reject sequences,
   results, dispatches and counters, floats included.
 * **The CLI and the device rule.**  ``python -m repro_torch.launch.query``
@@ -340,14 +340,19 @@ def test_layout_signature_keys_the_kernels_launch_shapes(port_graph):
     for vt, vb, eb, grp in sig:
         assert (vb, eb) == (sb.v[vt], sb.e[vt])
         assert grp == lane_group(eb[1] - eb[0], vb[1] - vb[0], 1)
-    with pytest.raises(NotImplementedError, match="A7"):
-        layout_signature(g, "partitioned", qry, "cuda")
+    assert layout_signature(g, "partitioned", qry, "torch", 4) == ()
+    from repro_torch.core import engine_partitioned as TEP
+    _, arrays = TEP.partition_for(g, 4)
+    n_dst = 4 * arrays.v_max
+    assert layout_signature(g, "partitioned", qry, "cuda", 4) == \
+        ("worker_csr", 4, (E2,), (n_dst + 1,), lane_group(E2, n_dst, 1))
+    assert layout_signature(g, "partitioned", qry, "cuda", 2) != \
+        layout_signature(g, "partitioned", qry, "cuda", 4)
 
 
 def test_unported_paths_raise_naming_their_items(port_graph):
     g = port_graph("small_static_graph")
-    with pytest.raises(NotImplementedError, match="A7"):
-        BatchScheduler(g, engine="partitioned", device="cpu")
+    assert BatchScheduler(g, engine="partitioned", device="cpu").n_workers == 4
     with pytest.raises(ValueError):
         BatchScheduler(g, impl="xla", device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
@@ -389,8 +394,7 @@ def test_cli_replay_on_the_cpu(capsys):
     assert "completion_rate: 1.0" in out and "n_failed: 0" in out
 
 
-@pytest.mark.parametrize("flags,item", [(["--engine", "partitioned"], "A7"),
-                                        (["--live"], "A8"),
+@pytest.mark.parametrize("flags,item", [(["--live"], "A8"),
                                         (["--wal", "x.wal"], "A8")])
 def test_cli_refuses_unported_modes(flags, item):
     with pytest.raises(SystemExit, match=item):
