@@ -61,8 +61,9 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                phase.  ``measure_supersteps`` on Q4 and agg-min-2hop in
                static mode (per-hop makespan, balance, channel volumes);
                at W = 4 one traced run of each profiled job (phase 5's).
-               Then the worker-form B1-B3 lines on the largest W = 8 call of
-               each variant, timed as in phase 6.
+               Then, at each W, B1-B3 lines on the largest partitioned
+               call of each variant (the flattened workers' CSR), timed as
+               in phase 6.
   6b. serve    the query server on the main graph (``serving/``,
                ``launch/query.py``), on the kernels (impl='cuda'): the
                bucket drain ``--serve`` runs (``GraniteServer.
@@ -469,29 +470,6 @@ def phase_oracle() -> None:
     REPORT["oracle"] = dict(persons=200, templates_with_matches=int(n_nonzero))
 
 
-def _wrapper_specs(suffix: str) -> list:
-    """(wrapper name, variant key, call size) of B1, B2 and B3's wrappers:
-    the main path's (``suffix`` "") or the partitioned executor's worker
-    form ("_workers"), whose last positional operand is the layout."""
-    return [
-        ("fused_hop_cols" + suffix,
-         lambda state, src, w, ptr, mch=None, **kw: ("fused_hop_cols" + suffix,
-                                                     state.shape[-1], mch is not None),
-         lambda state, src, w, ptr, **kw: src.numel() * w.shape[0] * w.shape[2]),
-        ("fused_hop_interval" + suffix,
-         lambda state, src, w, sb, eb, ptr, mch=None, **kw: ("fused_hop_interval" + suffix,
-                                                             state.shape[-2], mch is not None),
-         lambda state, src, w, *a, **kw: src.numel() * w.shape[0]),
-        ("scatter_cols" + suffix,
-         lambda contrib, ptr: ("scatter_cols" + suffix, contrib[0, 0].numel(), False),
-         lambda contrib, ptr: contrib.numel()),
-    ]
-
-
-MAIN_SPECS = _wrapper_specs("")
-WORKER_SPECS = _wrapper_specs("_workers")
-
-
 class Recorder:
     """Finds the largest main-path call of every kernel variant, then
     captures its inputs for the kernels phase.
@@ -501,9 +479,8 @@ class Recorder:
     ``capture`` then re-runs each chosen job once and keeps the inputs of
     that call.  Launches are still counted inside the wrappers only."""
 
-    def __init__(self, HK, specs=None):
+    def __init__(self, HK):
         self.HK = HK
-        self.specs = specs if specs is not None else MAIN_SPECS
         self.job = None          # index of the job being run
         self.best = {}           # variant key -> (size, job index)
         self.inputs = {}         # variant key -> (wrapper name, args, kwargs)
@@ -526,8 +503,17 @@ class Recorder:
         setattr(self.HK, name, wrapped)
 
     def __enter__(self):
-        for name, key_fn, size_fn in self.specs:
-            self._wrap(name, key_fn, size_fn)
+        self._wrap("fused_hop_cols",
+                   lambda state, src, w, ptr, mch=None, **kw:
+                   ("fused_hop_cols", state.shape[-1], mch is not None),
+                   lambda state, src, w, ptr, **kw: src.numel() * w.shape[0] * w.shape[2])
+        self._wrap("fused_hop_interval",
+                   lambda state, src, w, sb, eb, ptr, mch=None, **kw:
+                   ("fused_hop_interval", state.shape[-2], mch is not None),
+                   lambda state, src, w, *a, **kw: src.numel() * w.shape[0])
+        self._wrap("scatter_cols",
+                   lambda contrib, ptr: ("scatter_cols", contrib[0, 0].numel(), False),
+                   lambda contrib, ptr: contrib.numel())
         return self
 
     def __exit__(self, *exc):
@@ -839,14 +825,12 @@ def hop_entry(launches: dict, name, variant, kern, plain, library, nbytes, flops
     return e
 
 
-def hop_kernel_lines(inputs: dict, launches: dict, tag: str = "") -> list:
+def hop_kernel_lines(inputs: dict, launches: dict, tag: str = "",
+                     extra: dict = None) -> list:
     """B1-B3 lines on captured calls (``Recorder.inputs``), each held to its
-    plain version and timed.  A worker-form call (the partitioned executor's
-    ``*_workers`` wrappers, captured with its ``WorkerCSR``) is timed through
-    that wrapper and held to the worker-form plain version; its bound and
-    library call are the base kernel's on the flattened CSR it launches on,
-    and its line also gives the workers and the share of pad slots that the
-    flattened CSR leaves out.  ``tag`` prefixes each variant."""
+    plain version and timed.  ``tag`` prefixes each variant and ``extra``
+    joins each line's shape (the partitioned executor's calls: its workers
+    and the share of pad slots that the flattened CSR leaves out)."""
     from repro_torch.kernels import hop_scatter as HK
 
     entries = []
@@ -860,22 +844,12 @@ def hop_kernel_lines(inputs: dict, launches: dict, tag: str = "") -> list:
         deg = int((ptr[1:] - ptr[:-1]).max()) if V else 0
         return dict(Q=Qn, V=V, E=E, w_shared=Qn > 1 and w.stride(0) == 0, max_deg=deg)
 
+    extra = extra or {}
     for key in sorted(inputs, key=str):
-        wname, wa, kw = inputs[key]
+        name, a, kw = inputs[key]
         mch = kw.get("mch")
-        name = wname.removesuffix("_workers")
-        worker = name != wname
-        extra = {}
-        if worker:     # the base kernel's operands: the flattened CSR's pointer
-            lay = wa[-1]
-            a = tuple(wa[:-1]) + (lay.ptr,)
-            extra = dict(W=lay.n_workers, pad_slots=lay.n_pad,
-                         pad_share=lay.n_pad / max(lay.n_pad + lay.n_real, 1))
-        else:
-            a = wa
-        kern_fn = lambda wname=wname, wa=wa, kw=kw: getattr(HK, wname)(*wa, **kw)
-        plain_fn = lambda wname=wname, wa=wa, kw=kw: getattr(HK, wname + "_plain")(*wa, **kw)
-        variant0 = tag
+        kern_fn = lambda name=name, a=a, kw=kw: getattr(HK, name)(*a, **kw)
+        plain_fn = lambda name=name, a=a, kw=kw: getattr(HK, name + "_plain")(*a, **kw)
         if name == "fused_hop_cols":
             state, src, w, ptr = a
             Qn, N, C = state.shape
@@ -922,7 +896,7 @@ def hop_kernel_lines(inputs: dict, launches: dict, tag: str = "") -> list:
                 library = lambda A=A, X=X: torch.bmm(A, X)
                 compare(back(library()), HK.fused_hop_cols(*a, **kw)[0],
                         "library bmm vs fused_hop_cols")
-            variant = variant0 + f"C={C}" + (",extremum" if mch is not None else "")
+            variant = tag + f"C={C}" + (",extremum" if mch is not None else "")
             vec = HK.cols_vector_width(C, mch is not None, (state, HK.query_stride(state, "state")),
                                        (w, HK.query_stride(w, "w")))
             entry(name, variant, kern_fn, plain_fn, library, nbytes, 2.0 * Qn * E * C,
@@ -939,7 +913,7 @@ def hop_kernel_lines(inputs: dict, launches: dict, tag: str = "") -> list:
             nbytes = f32 * (V + 1 + E + 3 * qw * E + Qn * U * NC + Qn * V * NC)
             if mch is not None:
                 nbytes += f32 * (Qn * U + Qn * V)
-            variant = variant0 + f"B={B}" + (",extremum" if mch is not None else "")
+            variant = tag + f"B={B}" + (",extremum" if mch is not None else "")
             entry(name, variant, kern_fn, plain_fn, None, nbytes, 4.0 * active * NC,
                   dict(csr_shape(Qn, ptr, E, w), B=B,
                        lanes=HK.WARP if B + 1 <= HK.WARP else "block", **extra))
@@ -953,7 +927,7 @@ def hop_kernel_lines(inputs: dict, launches: dict, tag: str = "") -> list:
             library = lambda: out0.clone().index_add_(1, seg, contrib)
             nbytes = f32 * (V + 1 + Qn * E * C + Qn * V * C)
             vec = HK.vector_width(C, (contrib, HK.query_stride(contrib, "contrib")))
-            entry(name, variant0 + f"C={C}", lambda f=kern_fn: (f(), None),
+            entry(name, tag + f"C={C}", lambda f=kern_fn: (f(), None),
                   lambda f=plain_fn: (f(), None), library, nbytes, 1.0 * Qn * E * C,
                   dict(csr_shape(Qn, ptr, E, contrib), C=C, G=HK.lane_group(E, V, C // vec),
                        **extra))
@@ -1096,7 +1070,7 @@ def phase_partitioned(graph, jobs, main_rows) -> tuple:
     timings) beside the main phase's, peak and resident memory, answers held
     to the main path's impl='cuda' (and at W = 4 to the partitioned
     impl='torch'), B1-B3 launched exactly once per kernel-lowered hop; then
-    ``measure_supersteps`` and the worker-form kernel lines at W = 8.
+    ``measure_supersteps`` and the B1-B3 kernel lines of each W.
     Returns (report, kernel lines)."""
     from repro_torch.core import engine_partitioned as EP
     from repro_torch.kernels import hop_scatter as HK
@@ -1109,7 +1083,7 @@ def phase_partitioned(graph, jobs, main_rows) -> tuple:
         setup = partition_setup(graph, W)
         rows = []
         launches = dict.fromkeys(HK.LAUNCHES, 0)
-        rec = Recorder(HK, WORKER_SPECS) if W == PART_WORKERS[-1] else None
+        rec = Recorder(HK)
         for j, job in enumerate(jobs):
             t, mode, split, batch = job
             mname = ["static", "bucket", "interval"][mode]
@@ -1122,12 +1096,9 @@ def phase_partitioned(graph, jobs, main_rows) -> tuple:
                     launches[k] += HK.LAUNCHES[k] - before[k]
                 return {k: HK.LAUNCHES[k] - before[k] for k in HK.LAUNCHES}
 
-            if rec is not None:
-                rec.job = j
-                with rec:
-                    counted(lambda: part_job(graph, job, W))        # warm-up
-            else:
-                counted(lambda: part_job(graph, job, W))
+            rec.job = j
+            with rec:
+                counted(lambda: part_job(graph, job, W))            # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -1206,11 +1177,12 @@ def phase_partitioned(graph, jobs, main_rows) -> tuple:
                               f"Q={len(batch)}", tr)
         info["workers"][W] = dict(setup=setup, rows=rows, launches=launches,
                                   supersteps=prof, traces=traces)
-        if rec is not None:
-            rec.capture(lambda j: part_job(graph, jobs[j], W))
-            lines = hop_kernel_lines(rec.inputs, launches, tag=f"W={W},")
-            rec.inputs.clear()
-            del rec
+        rec.capture(lambda j: part_job(graph, jobs[j], W))
+        lines += hop_kernel_lines(rec.inputs, launches, tag=f"W={W},",
+                                  extra=dict(W=W, pad_slots=setup["pad_slots"],
+                                             pad_share=setup["pad_share"]))
+        rec.inputs.clear()
+        del rec
         graph.__dict__.pop("_partition_dev_cache", None)
         free_memory()
     info["wall_s"] = time.perf_counter() - t_phase

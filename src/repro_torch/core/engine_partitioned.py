@@ -228,7 +228,7 @@ def _local_compute(halo, m_halo, wmask, evalid, pdev, mode: int, mch_op: int,
     if fused:
         arrivals, mch = SS.fused_hop_deliver(
             halo, pdev["src_rows"], wm, ev, mode, lay.ptr, lay.n_dst, bedges,
-            mch=m_halo, minmax_op=mch_op, workers=lay)
+            mch=m_halo, minmax_op=mch_op)
         return cnt, arrivals, mch
     arrivals = SS.deliver(cnt, lay.ptr, lay.n_dst)
     mch = None
@@ -322,9 +322,7 @@ def _etr_consume(summ, vm, vv, wmask, evalid, pdev, mode: int, impl: str,
     ev = None if evalid is None else _rows(evalid, pdev["real_eids"])
     cnt = SS.apply_edge(sv, _rows(wmask, pdev["real_eids"]), ev, mode, bedges)
     del sv
-    if use_kernels(impl):
-        return cnt, HK.scatter_cols_workers(cnt.contiguous(), lay)
-    return cnt, SS.deliver(cnt, lay.ptr, lay.n_dst)
+    return cnt, SS.deliver(cnt, lay.ptr, lay.n_dst, impl)
 
 
 def _etr_hop_p2p(pdev, prev: list, vm, vv, wmask, evalid, op: int,

@@ -520,7 +520,6 @@ def fused_hop_deliver(
     bedges,
     mch=None,                    # optional extremum channel table [Q, N]
     minmax_op: int = Q.AGG_MIN,
-    workers=None,                # HK.WorkerCSR: every worker's CSR at once
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One fused traversal hop: gather → temporal mask → segment-reduce.
 
@@ -533,11 +532,6 @@ def fused_hop_deliver(
     Edge weights that do not depend on the query are computed once and
     broadcast over the query axis (the kernels read them with query stride 0).
 
-    With ``workers`` (the partitioned executor) the edges are every worker's
-    real owned edges, ``state`` the workers' halo tables stacked worker-major
-    and the destinations the workers' owned slots; ``ptr`` is then unused
-    (the layout carries the flattened CSR) and the hop is still one launch.
-
     Returns (arrivals [Q, num_segments, *TS], mch_out [Q, num_segments] | None).
     """
     nq = state.shape[0]
@@ -547,7 +541,6 @@ def fused_hop_deliver(
         evalid = None if evalid is None else evalid[:1]
     op_is_min = minmax_op == Q.AGG_MIN
     neutral = float("inf") if op_is_min else float("-inf")
-    csr = ptr if workers is None else workers
     src_slot = src_slot.to(torch.int32).contiguous()
     state = state.contiguous()
     if mch is not None:
@@ -558,9 +551,9 @@ def fused_hop_deliver(
         w = wmask.to(F32)
         if shared:
             w, sb, eb = (x.expand(nq, -1) for x in (w, sb, eb))
-        hop = HK.fused_hop_interval if workers is None else HK.fused_hop_interval_workers
-        arrivals, mch_out = hop(state, src_slot, w, sb, eb, csr, mch=mch,
-                                neutral=neutral, op_is_min=op_is_min)
+        arrivals, mch_out = HK.fused_hop_interval(
+            state, src_slot, w, sb, eb, ptr, mch=mch, neutral=neutral,
+            op_is_min=op_is_min)
     else:
         N = state.shape[1]
         ts = tuple(state.shape[2:])
@@ -571,9 +564,9 @@ def fused_hop_deliver(
             w = (wmask[..., None] & evalid).to(F32)
         if shared:
             w = w.expand(nq, -1, -1)
-        hop = HK.fused_hop_cols if workers is None else HK.fused_hop_cols_workers
-        out, mch_out = hop(state.reshape(nq, N, C), src_slot, w, csr, mch=mch,
-                           neutral=neutral, op_is_min=op_is_min)
+        out, mch_out = HK.fused_hop_cols(
+            state.reshape(nq, N, C), src_slot, w, ptr, mch=mch, neutral=neutral,
+            op_is_min=op_is_min)
         arrivals = out.reshape((nq, num_segments) + ts)
     return arrivals, mch_out
 

@@ -4,7 +4,4 @@ from .ops import (LAUNCHES, fused_hop_cols, fused_hop_cols_plain,  # noqa: F401
                   fused_hop_interval, fused_hop_interval_plain,
                   interval_apply_plain, reset_launches, scatter_cols,
                   scatter_cols_plain, scatter_extremum, scatter_extremum_plain,
-                  segment_ids, WorkerCSR, worker_csr,
-                  fused_hop_cols_workers, fused_hop_cols_workers_plain,
-                  fused_hop_interval_workers, fused_hop_interval_workers_plain,
-                  scatter_cols_workers, scatter_cols_workers_plain)
+                  segment_ids, WorkerCSR, worker_csr)

@@ -22,11 +22,10 @@ Four wrappers, one per CUDA kernel of ``csrc/hop_scatter.cu``:
   scatter_extremum     segment min/max of a per-edge channel gated by alive
 
 The partitioned executor runs B1-B3 over every worker's local arrival CSR in
-one launch: ``WorkerCSR`` flattens the workers' CSRs into one over the
-(worker, owned slot) destinations and the REAL owned edges only, and the
-``*_workers`` wrappers take operands in that layout (their plain versions sum
-by the flat destination ids instead of the pointer).  Each worker pads its
-edge row to the longest worker's and puts the pads on a trash segment; the
+one launch of the same wrappers: ``worker_csr`` flattens the workers' CSRs
+into one over the (worker, owned slot) destinations and the REAL owned edges
+only, and its pointer is the ``ptr`` of the call.  Each worker pads its edge
+row to the longest worker's and puts the pads on a trash segment; the
 flattened CSR leaves them out, so no lane ever walks a pad edge.  A
 destination's run is the same run, in the same canonical order, as in the
 global arrival CSR.
@@ -155,7 +154,7 @@ def scatter_extremum_plain(m_e, alive, ptr, neutral: float, op_is_min: bool):
 
 
 # =========================================================================
-# the worker form: every worker's local arrival CSR in one launch
+# the worker form: every worker's local arrival CSR as one CSR
 # =========================================================================
 @dataclasses.dataclass
 class WorkerCSR:
@@ -166,17 +165,13 @@ class WorkerCSR:
     n_workers: int
     v_max: int
     ptr: torch.Tensor    # int32 [W * v_max + 1] flattened arrival CSR
-    dst: torch.Tensor    # int64 [E_real] flat destination of each real edge
     real: torch.Tensor   # int64 [E_real] flat padded position w * e_max + j
+    n_real: int          # real edges: ptr[-1]
     n_pad: int           # pad slots of the [W, e_max] rows, left out
 
     @property
     def n_dst(self) -> int:
         return self.n_workers * self.v_max
-
-    @property
-    def n_real(self) -> int:
-        return int(self.dst.shape[0])
 
 
 def worker_csr(ptr_w: np.ndarray, e_max: int, device) -> WorkerCSR:
@@ -188,69 +183,16 @@ def worker_csr(ptr_w: np.ndarray, e_max: int, device) -> WorkerCSR:
     v_max = vp2 - 2
     ptr_w = ptr_w.astype(np.int64)
     n_real_w = ptr_w[:, v_max]
+    n_real = int(n_real_w.sum())
     base = np.concatenate(([0], np.cumsum(n_real_w)[:-1]))
     flat = np.empty(W * v_max + 1, np.int64)
     flat[:-1] = (ptr_w[:, :v_max] + base[:, None]).reshape(-1)
-    flat[-1] = int(n_real_w.sum())
-    counts = np.diff(flat)
+    flat[-1] = n_real
     real = np.concatenate([w * e_max + np.arange(n, dtype=np.int64)
                            for w, n in enumerate(n_real_w)])
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return WorkerCSR(
-        n_workers=W, v_max=v_max, ptr=t(flat.astype(np.int32)),
-        dst=t(np.repeat(np.arange(W * v_max, dtype=np.int64), counts)),
-        real=t(real), n_pad=int(W * e_max - n_real_w.sum()))
-
-
-def _segment_sum_ids(contrib, dst, n_dst: int):
-    out = contrib.new_zeros((contrib.shape[0], n_dst) + tuple(contrib.shape[2:]))
-    return out.index_add_(1, dst, contrib)
-
-
-def _segment_extremum_ids(m_e, alive, dst, n_dst: int, neutral, op_is_min):
-    Qn, E = m_e.shape
-    vals = torch.where(alive, m_e, torch.full_like(m_e, neutral))
-    out = torch.full((Qn, n_dst), neutral, dtype=torch.float32, device=m_e.device)
-    return out.scatter_reduce_(1, dst.expand(Qn, E), vals,
-                               "amin" if op_is_min else "amax", include_self=True)
-
-
-def fused_hop_cols_workers_plain(state, src, w, lay: WorkerCSR, mch=None,
-                                 neutral: float = 0.0, op_is_min: bool = True):
-    """Worker form of ``fused_hop_cols_plain``: ``state`` [Q, N, C] is the
-    workers' source tables stacked worker-major, ``src`` int32 [E_real] a
-    row of it per real edge (N = zero row), ``w`` [Q, E_real, C] → ([Q,
-    W * v_max, C], [Q, W * v_max] | None)."""
-    srcl = src.long()
-    contrib = _pad_row(state, 0.0)[:, srcl] * w
-    out = _segment_sum_ids(contrib, lay.dst, lay.n_dst)
-    if mch is None:
-        return out, None
-    alive = contrib.sum(dim=-1) > 0
-    return out, _segment_extremum_ids(_pad_row(mch, neutral)[:, srcl], alive,
-                                      lay.dst, lay.n_dst, neutral, op_is_min)
-
-
-def fused_hop_interval_workers_plain(state, src, w, sb, eb, lay: WorkerCSR,
-                                     mch=None, neutral: float = 0.0,
-                                     op_is_min: bool = True):
-    """Worker form of ``fused_hop_interval_plain`` (operands as in
-    ``fused_hop_cols_workers_plain``, state [Q, N, B, B+1], w/sb/eb
-    [Q, E_real])."""
-    srcl = src.long()
-    contrib = interval_apply_plain(_pad_row(state, 0.0)[:, srcl], w, sb, eb)
-    out = _segment_sum_ids(contrib, lay.dst, lay.n_dst)
-    if mch is None:
-        return out, None
-    alive = contrib.sum(dim=(-2, -1)) > 0
-    return out, _segment_extremum_ids(_pad_row(mch, neutral)[:, srcl], alive,
-                                      lay.dst, lay.n_dst, neutral, op_is_min)
-
-
-def scatter_cols_workers_plain(contrib, lay: WorkerCSR):
-    """Worker form of ``scatter_cols_plain``: [Q, E_real, *TS] per real edge
-    → [Q, W * v_max, *TS]."""
-    return _segment_sum_ids(contrib, lay.dst, lay.n_dst)
+    return WorkerCSR(n_workers=W, v_max=v_max, ptr=t(flat.astype(np.int32)),
+                     real=t(real), n_real=n_real, n_pad=int(W * e_max - n_real))
 
 
 # =========================================================================
@@ -450,30 +392,3 @@ def scatter_extremum(m_e, alive, ptr, neutral: float, op_is_min: bool) -> torch.
         build.check(err, "hop_scatter_extremum")
         LAUNCHES["scatter_extremum"] += 1
     return out
-
-
-def fused_hop_cols_workers(state, src, w, lay: WorkerCSR, mch=None,
-                           neutral: float = 0.0, op_is_min: bool = True):
-    """B1 over every worker at once: one launch of ``hop_fused_cols`` on the
-    flattened CSR; see ``fused_hop_cols_workers_plain``."""
-    if not state.is_cuda:
-        return fused_hop_cols_workers_plain(state, src, w, lay, mch, neutral,
-                                            op_is_min)
-    return fused_hop_cols(state, src, w, lay.ptr, mch, neutral, op_is_min)
-
-
-def fused_hop_interval_workers(state, src, w, sb, eb, lay: WorkerCSR, mch=None,
-                               neutral: float = 0.0, op_is_min: bool = True):
-    """B2 over every worker at once; see ``fused_hop_interval_workers_plain``."""
-    if not state.is_cuda:
-        return fused_hop_interval_workers_plain(state, src, w, sb, eb, lay, mch,
-                                                neutral, op_is_min)
-    return fused_hop_interval(state, src, w, sb, eb, lay.ptr, mch, neutral,
-                              op_is_min)
-
-
-def scatter_cols_workers(contrib, lay: WorkerCSR) -> torch.Tensor:
-    """B3 over every worker at once; see ``scatter_cols_workers_plain``."""
-    if not contrib.is_cuda:
-        return scatter_cols_workers_plain(contrib, lay)
-    return scatter_cols(contrib, lay.ptr)

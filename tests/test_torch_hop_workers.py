@@ -5,8 +5,9 @@ executor's local hops, every worker in one launch) on the CPU.
 238-degree hub, so the others pad far past their own edges, and one worker
 is mostly pads).  Each shard gets the partitioner's padded layout: its edges
 in canonical order, padded to the longest shard with pads on the trash
-segment ``v_max``.  The worker-form plain versions, over the flattened
-real-edge CSR (``kernels.hop_scatter.worker_csr``), must equal
+segment ``v_max``.  The worker form is the wrappers' ordinary call on the
+flattened real-edge CSR (``kernels.hop_scatter.worker_csr``): on CPU tensors
+their plain versions, which must equal
 
 * today's plain versions called once per worker on that worker's padded
   CSR (``np.array_equal``), and
@@ -63,9 +64,9 @@ def test_fused_hop_cols_workers(C, ext):
     kw = dict(neutral=float(neutral), op_is_min=ext == "min")
     t = torch.from_numpy
     lay = sh["lay"]
-    got, got_m = HK.fused_hop_cols_workers(
+    got, got_m = HK.fused_hop_cols(
         t(table).reshape(Q, W * R, C), t(s_flat),
-        t(np.stack([hop_cases.at_real(sh, w_w[q]) for q in range(Q)])), lay,
+        t(np.stack([hop_cases.at_real(sh, w_w[q]) for q in range(Q)])), lay.ptr,
         mch=t(mch).reshape(Q, W * R) if ext else None, **kw)
     vm = sh["v_max"]
     got = got.reshape(Q, W, vm, C).numpy()
@@ -109,10 +110,10 @@ def test_fused_hop_interval_workers(B, ext):
           for k in ("w", "sb", "eb")}
     kw = dict(neutral=-np.inf, op_is_min=False) if ext else {}
     t = torch.from_numpy
-    got, got_m = HK.fused_hop_interval_workers(
+    got, got_m = HK.fused_hop_interval(
         t(cells).reshape(Q, W * R, B, B + 1), t(s_flat),
         *(t(np.stack([hop_cases.at_real(sh, pw[k][q]) for q in range(Q)])) for k in ("w", "sb", "eb")),
-        sh["lay"], mch=t(mch).reshape(Q, W * R) if ext else None, **kw)
+        sh["lay"].ptr, mch=t(mch).reshape(Q, W * R) if ext else None, **kw)
     vm, NC = sh["v_max"], B * (B + 1)
     got = got.reshape(Q, W, vm, B, B + 1).numpy()
     _, tab = layouts(sh)
@@ -151,8 +152,8 @@ def test_scatter_cols_workers(C):
     contrib_w = rng.integers(0, 5, size=(Q, W, sh["e_max"], C)).astype(np.float32)
     contrib_w[:, sh["eid"] < 0] = 0.0                 # the pads carry nothing
     t = torch.from_numpy
-    got = HK.scatter_cols_workers(
-        t(np.stack([hop_cases.at_real(sh, contrib_w[q]) for q in range(Q)])), sh["lay"])
+    got = HK.scatter_cols(
+        t(np.stack([hop_cases.at_real(sh, contrib_w[q]) for q in range(Q)])), sh["lay"].ptr)
     vm = sh["v_max"]
     got = got.reshape(Q, W, vm, C).numpy()
     _, tab = layouts(sh)

@@ -305,53 +305,55 @@ def _shards(dev, seed, ptr, pad_heavy: bool):
     """``hop_cases.worker_shards`` of ``ptr`` with its flattened CSR on the
     card.  ``pad_heavy`` appends a 2^20-edge hub on worker 1, so every other
     worker's row is more than 2^20 pads (its trash segment), the kind of run
-    one warp would walk if the pads were in the CSR."""
+    one warp would walk if the pads were in the CSR.
+
+    That no lane walks a pad is a property of the CSR the kernel is given,
+    checked here: it covers the real edges only (``ptr[-1]`` is their
+    count), and each destination's run is its vertex's run in the global
+    CSR.  The pads are not in the operands at all."""
     if pad_heavy:
         ptr = np.concatenate([ptr, [ptr[-1] + (1 << 20)]]).astype(np.int32)
     sh = hop_cases.worker_shards(ptr, W_SHARDS, seed)
-    sh["lay"] = HK.worker_csr(sh["ptr_w"], sh["e_max"], dev)
+    lay = sh["lay"] = HK.worker_csr(sh["ptr_w"], sh["e_max"], dev)
+    fp = lay.ptr.cpu().numpy().astype(np.int64)
+    assert fp[-1] == lay.n_real == int(ptr[-1])
+    eids = sh["eid"].reshape(-1)[lay.real.cpu().numpy()]
+    for d in np.nonzero(np.diff(fp))[0]:
+        run = eids[fp[d]:fp[d + 1]]
+        v = np.searchsorted(ptr, run[0], side="right") - 1
+        assert np.array_equal(run, np.arange(ptr[v], ptr[v + 1]))
+    if pad_heavy:
+        assert lay.n_pad > (1 << 20)
     return sh
-
-
-def _poisoned(sh, per_edge, fill, poison):
-    """Padded per-edge rows with ``poison`` at every pad: whatever reads a
-    pad shows it."""
-    x = hop_cases.edge_rows(sh, per_edge, fill)
-    x[sh["eid"] < 0] = poison
-    return x
 
 
 @pytest.mark.parametrize("pad_heavy", [False, True])
 @pytest.mark.parametrize("ext", [None, "min"])
 @pytest.mark.parametrize("C", [1, 16])
 def test_fused_hop_cols_workers(dev, C, ext, pad_heavy):
-    """B1's worker form: one launch over every shard, equal to its plain
-    version; on the pad-heavy shards the pads carry NaN weights and yet no
-    output is NaN, because the flattened CSR holds real edges only."""
+    """B1 over every shard: one launch on the flattened CSR, equal to its
+    plain version."""
     Q = 3
     rng = np.random.default_rng(C + 10 * pad_heavy)
     sh = _shards(dev, C, hop_cases.skewed_ptr(rng, 300), pad_heavy)
     lay = sh["lay"]
     E = int(sh["eid"].max()) + 1
     w_e = (rng.random((Q, C, E)) < 0.6).astype(np.float32)
-    w_w = np.stack([_poisoned(sh, w_e[q], 0.0, np.nan) for q in range(Q)])
     _, s_flat = hop_cases.src_rows(sh, rng, R_ROWS)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     state = t(rng.integers(0, 4, size=(Q, W_SHARDS * R_ROWS, C)).astype(np.float32))
-    w = t(np.stack([hop_cases.at_real(sh, w_w[q]) for q in range(Q)]))
+    w = t(np.stack([hop_cases.at_real(sh, hop_cases.edge_rows(sh, w_e[q], 0.0))
+                    for q in range(Q)]))
     kw = dict(mch=t(rng.integers(1, 500, size=(Q, W_SHARDS * R_ROWS)).astype(np.float32)),
               neutral=float("inf"), op_is_min=True) if ext else {}
     n0 = HK.LAUNCHES["fused_hop_cols"]
-    out, mm = HK.fused_hop_cols_workers(state, t(s_flat), w, lay, **kw)
+    out, mm = HK.fused_hop_cols(state, t(s_flat), w, lay.ptr, **kw)
     torch.cuda.synchronize()
     assert HK.LAUNCHES["fused_hop_cols"] == n0 + 1
-    ref, ref_mm = HK.fused_hop_cols_workers_plain(state, t(s_flat), w, lay, **kw)
-    assert not bool(torch.isnan(out).any())
+    ref, ref_mm = HK.fused_hop_cols_plain(state, t(s_flat), w, lay.ptr, **kw)
     assert torch.equal(out, ref)
     if ext:
         assert torch.equal(mm, ref_mm)
-    if pad_heavy:
-        assert lay.n_pad > (1 << 20) and int(lay.ptr[-1]) == lay.n_real
 
 
 @pytest.mark.parametrize("pad_heavy", [False, True])
@@ -369,17 +371,16 @@ def test_fused_hop_interval_workers(dev, ext, pad_heavy):
     per = dict(w=(rng.random((Q, E)) < 0.7).astype(np.float32),
                sb=rng.integers(0, B, size=(Q, E)).astype(np.int32),
                eb=rng.integers(0, B + 1, size=(Q, E)).astype(np.int32))
-    ops = [t(np.stack([hop_cases.at_real(sh, _poisoned(sh, per[k][q], 0, np.nan if k == "w"
-                                                       else -7))
+    ops = [t(np.stack([hop_cases.at_real(sh, hop_cases.edge_rows(sh, per[k][q], 0))
                        for q in range(Q)])) for k in ("w", "sb", "eb")]
     kw = dict(mch=t(rng.integers(1, 500, size=(Q, W_SHARDS * R_ROWS)).astype(np.float32)),
               neutral=float("-inf"), op_is_min=False) if ext else {}
     n0 = HK.LAUNCHES["fused_hop_interval"]
-    out, mm = HK.fused_hop_interval_workers(t(cells), t(s_flat), *ops, lay, **kw)
+    out, mm = HK.fused_hop_interval(t(cells), t(s_flat), *ops, lay.ptr, **kw)
     torch.cuda.synchronize()
     assert HK.LAUNCHES["fused_hop_interval"] == n0 + 1
-    ref, ref_mm = HK.fused_hop_interval_workers_plain(t(cells), t(s_flat), *ops, lay, **kw)
-    assert not bool(torch.isnan(out).any()) and torch.equal(out, ref)
+    ref, ref_mm = HK.fused_hop_interval_plain(t(cells), t(s_flat), *ops, lay.ptr, **kw)
+    assert torch.equal(out, ref)
     if ext:
         assert torch.equal(mm, ref_mm)
 
@@ -393,13 +394,12 @@ def test_scatter_cols_workers(dev, C, pad_heavy):
     E = int(sh["eid"].max()) + 1
     contrib_e = rng.integers(0, 5, size=(Q, C, E)).astype(np.float32)
     contrib = torch.from_numpy(np.stack([hop_cases.at_real(
-        sh, _poisoned(sh, contrib_e[q], 0.0, np.nan)) for q in range(Q)])).to(dev)
+        sh, hop_cases.edge_rows(sh, contrib_e[q], 0.0)) for q in range(Q)])).to(dev)
     n0 = HK.LAUNCHES["scatter_cols"]
-    out = HK.scatter_cols_workers(contrib, sh["lay"])
+    out = HK.scatter_cols(contrib, sh["lay"].ptr)
     torch.cuda.synchronize()
     assert HK.LAUNCHES["scatter_cols"] == n0 + 1
-    assert not bool(torch.isnan(out).any())
-    assert torch.equal(out, HK.scatter_cols_workers_plain(contrib, sh["lay"]))
+    assert torch.equal(out, HK.scatter_cols_plain(contrib, sh["lay"].ptr))
 
 
 @pytest.mark.parametrize("op_is_min", [True, False])

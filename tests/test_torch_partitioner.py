@@ -120,7 +120,7 @@ def test_worker_arrival_ptr_is_a_searchsorted_over_dst_local(pair, name):
         # every flattened run is the worker's run, at real positions only
         real = lay.real.numpy()
         assert np.array_equal(pa.dst_local.reshape(-1)[real] + (real // pa.e_max) * pa.v_max,
-                              lay.dst.numpy())
+                              HK.segment_ids(lay.ptr, lay.n_real).numpy())
         assert (pa.edge_ids.reshape(-1)[real] < 2 * port.n_edges).all()
 
 
