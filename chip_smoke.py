@@ -127,9 +127,13 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                ``retrieval_score`` of one query against 1,000,000 candidates
                (top 128), with the EmbeddingBag counter (B8) set to 0 just
                before and read just after; one traced run of each;
-               impl='torch' held against them;
+               impl='torch' held against them; B8 must launch once a
+               forward (all 26 tables in one launch), 3 in all;
                then B8 against its plain version on the bulk batch's first
-               table, timed as in phase 6.
+               table, and its table-batched launch over all 26 tables on
+               the bulk batch (equal to the plain version and to the 26
+               single-table calls, whose summed host time and ms stand
+               beside it), timed as in phase 6.
   9. gnn       GNN inference on the minibatch_lg deployment (configs/common.py
                GNN_SHAPES): a synthetic graph of 232,965 nodes and 114,615,892
                edges made on the card from SEED, its CSR and a 232,965 x 602
@@ -150,7 +154,7 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
 Phase 6 also holds TimeWarp (B6), which no path of either package reaches,
 equal to its plain version through its entry point, on every vertex's
 lifespan of the main graph, its 16 bucket edges and the per-vertex bucket
-state of a main-path aggregate query.
+state of a main-path aggregate query, in float32 and cast to bfloat16.
 
 Exactness: counts are integers in float32, so a kernel equals its plain
 version bit for bit while magnitudes stay below 2^24; entries at or above
@@ -963,12 +967,13 @@ def phase_kernels(recorder: Recorder, launches: dict) -> list:
     return entries
 
 
-def warp_entry(graph, jobs) -> dict:
+def warp_entries(graph, jobs) -> list:
     """B6 through its entry point (no path of either package reaches it) on
     the main graph's operands: every vertex's lifespan, the graph's bucket
     edges and the per-vertex bucket state of a main-path query (the first
     query of the first bucket-mode job with an aggregate, whose output keeps
-    that state).  Held equal to its plain version."""
+    that state), in float32 and cast to bfloat16 (16-byte chunks of 4 and
+    of 8 values).  Each held equal to its plain version."""
     from repro_torch.core import engine as E
     from repro_torch.core import query as Q
     from repro_torch.kernels import interval_warp as IW
@@ -983,23 +988,28 @@ def warp_entry(graph, jobs) -> dict:
     bedges = E.bucket_edges_for(graph, WARP_BUCKETS, dev).to(torch.int32)
     if tuple(counts.shape) != (V, WARP_BUCKETS):
         raise AssertionError(f"kernels: bucket state {tuple(counts.shape)} != {(V, WARP_BUCKETS)}")
-    IW.reset_launches()           # its entry point, called once
-    got = IW.interval_warp(counts, ivl, bedges)
-    torch.cuda.synchronize()
-    launches = IW.LAUNCHES["interval_warp"]
-    identical(got, IW.interval_warp_plain(counts, ivl, bedges), "kernel interval_warp")
-    kept = int((got != 0).sum())
-    del got
-    n = counts.numel()
-    e = model_entry("interval_warp", f"B={WARP_BUCKETS},V={V}",
-                    lambda: IW.interval_warp(counts, ivl, bedges),
-                    lambda: IW.interval_warp_plain(counts, ivl, bedges), None,
-                    4.0 * (2 * n + 2 * V + WARP_BUCKETS + 1), 3.0 * n, F32_FLOP_PER_S,
-                    0.0, 0.0, launches)
-    e.update(template=job[0], nonzero_in=int((counts != 0).sum()), nonzero_out=kept)
-    log(f"kernels: interval_warp on {job[0]}'s bucket state: {e['nonzero_in']} non-zero "
-        f"counts in, {kept} out; equal to the plain version (NaN and signs of zero included)")
-    return e
+    entries = []
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, ",bf16")):
+        c = counts.to(dtype)
+        IW.reset_launches()           # its entry point, called once
+        got = IW.interval_warp(c, ivl, bedges)
+        torch.cuda.synchronize()
+        launches = IW.LAUNCHES["interval_warp"]
+        identical(got, IW.interval_warp_plain(c, ivl, bedges), f"kernel interval_warp{tag}")
+        kept = int((got != 0).sum())
+        del got
+        n = c.numel()
+        e = model_entry("interval_warp", f"B={WARP_BUCKETS},V={V}{tag}",
+                        lambda c=c: IW.interval_warp(c, ivl, bedges),
+                        lambda c=c: IW.interval_warp_plain(c, ivl, bedges), None,
+                        2.0 * n * c.element_size() + 4.0 * (2 * V + WARP_BUCKETS + 1), 3.0 * n,
+                        F32_FLOP_PER_S, 0.0, 0.0, launches)
+        e.update(template=job[0], nonzero_in=int((c != 0).sum()), nonzero_out=kept)
+        log(f"kernels: interval_warp{tag} on {job[0]}'s bucket state: {e['nonzero_in']} "
+            f"non-zero counts in, {kept} out; equal to the plain version (NaN and signs of "
+            f"zero included)")
+        entries.append(e)
+    return entries
 
 
 # =========================================================================
@@ -1904,7 +1914,7 @@ def phase_dlrm() -> tuple:
         rows[name] = dict(batch=calls[name][0].shape[0], ms=ev0.elapsed_time(ev1),
                           peak_bytes=torch.cuda.max_memory_allocated(), resident_bytes=base)
     launches = EB.LAUNCHES["embedding_bag"]       # read just after
-    want = cfg.n_sparse * len(calls)
+    want = len(calls)             # one launch a forward, for all of its tables
     if launches != want:
         raise AssertionError(f"dlrm: B8 launched {launches} times on the serve path, want {want}")
     for name, row in rows.items():
@@ -1944,9 +1954,57 @@ def phase_dlrm() -> tuple:
                         lambda: F.embedding_bag(idx_long, table, mode="sum"),
                         nbytes, float(idx.numel() * cfg.embed_dim), F32_FLOP_PER_S,
                         2e-5, 2e-5, launches)
+    del idx_long
+    entries = [entry, dlrm_batched_entry(EB, params["tables"], calls["serve_bulk"][1], launches)]
     del params, calls
     free_memory()
-    return info, [entry]
+    return info, entries
+
+
+def dlrm_batched_entry(EB, tables, idx, launches: int) -> dict:
+    """B8 as the DLRM forward calls it: one launch over all tables on the
+    bulk batch's indices [B, F, L].  Held equal (torch.equal) to its plain
+    version and to the F single-table calls.  Its library call is
+    F.embedding_bag over one packed copy of the tables with each feature's
+    indices shifted by its table's offset (the copy is made outside the
+    timing and freed after).  Beside the line's ``host_us``: the summed
+    host time, single-call and back-to-back ms of the F single-table calls
+    (``singles_*``) on contiguous index columns made beforehand."""
+    import torch.nn.functional as F
+
+    n_bags, n_tab, L = idx.shape
+    D = tables[0].shape[1]
+    cols = [idx[:, f].contiguous() for f in range(n_tab)]
+    got = EB.embedding_bags(tables, idx, "sum")
+    singles = lambda: [EB.embedding_bag(t, c, "sum") for t, c in zip(tables, cols)]
+    torch.cuda.synchronize()
+    if not torch.equal(got, torch.stack(singles(), dim=1)):
+        raise AssertionError("kernel embedding_bag: the batched launch differs from "
+                             "its single-table calls")
+    identical(got, EB.embedding_bags_plain(tables, idx, "sum"), "kernel embedding_bag[tables]")
+    del got
+    nbytes = 0.0
+    for c in cols:
+        uniq = int(torch.unique(c[c >= 0]).numel())
+        nbytes += 4.0 * (c.numel() + uniq * D + n_bags * D)
+    vocabs = [t.shape[0] for t in tables]
+    packed = torch.cat(tables)
+    offs = torch.tensor([0] + vocabs[:-1], device=idx.device).cumsum(0)
+    shifted = (idx.long() + offs[None, :, None]).reshape(n_bags * n_tab, L)
+    e = model_entry("embedding_bag", f"tables={n_tab},sum,B={n_bags}",
+                    lambda: EB.embedding_bags(tables, idx, "sum"),
+                    lambda: EB.embedding_bags_plain(tables, idx, "sum"),
+                    lambda: F.embedding_bag(shifted, packed, mode="sum").view(n_bags, n_tab, D),
+                    nbytes, float(idx.numel() * D), F32_FLOP_PER_S, 0.0, 0.0, launches,
+                    library_tol=2e-5)
+    del packed, shifted
+    e.update(tables=n_tab, singles_host_us=host_us(singles), singles_ms=time_ms(singles),
+             singles_b2b_ms=b2b_ms(singles))
+    log(f"kernels: embedding_bag[tables={n_tab}] equals its plain version and its {n_tab} "
+        f"single-table calls; host_us {e['host_us']:.1f} against {e['singles_host_us']:.1f} "
+        f"for the {n_tab} calls (ms {e['ms']:.4f} against {e['singles_ms']:.4f})")
+    free_memory()
+    return e
 
 
 # =========================================================================
@@ -2184,7 +2242,7 @@ def main(argv=None) -> int:
     REPORT["profile"] = phase_profile(graph, jobs)
     rec.capture(lambda j: run_job(graph, jobs[j]))
     kernels = phase_kernels(rec, REPORT["main"]["launches"])
-    kernels.append(warp_entry(graph, jobs))
+    kernels += warp_entries(graph, jobs)
     rec.inputs.clear()            # the kernels phase's operands: not the server's memory
     free_memory()
     REPORT["partitioned"], part_kernels = phase_partitioned(graph, jobs,

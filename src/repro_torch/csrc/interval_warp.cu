@@ -14,58 +14,122 @@
 // what must move is counts and the output once each, the intervals once
 // (8 bytes per entity) and the B + 1 bucket edges.  The Pallas kernel tiles
 // N into VMEM blocks so that the mask never reaches HBM; here the mask
-// lives in a register.
+// lives in a register.  A thread a value with a 64-bit division each, and
+// the row's interval re-read by every thread of the row, kept the first
+// version at half of that bound.
 //
-// Design, kept simple on purpose (a right kernel first):
-//   * One thread per value of [N, B], a grid-stride loop in 64-bit indices,
-//     so that neighbouring threads read and write neighbouring values.
-//   * The bucket edges (B <= 64 here) are staged in shared memory once per
-//     block; the interval of row n is read through the read-only cache by
-//     the B threads of that row.
-//   * bfloat16 values are widened to float32, multiplied by 0 or 1 (exact)
-//     and rounded back, which gives the bfloat16 product.
+// Design:
+//   * Each thread takes one 16-byte chunk of a row: 4 float32 values or 8
+//     bfloat16.  A block is 2-D, (chunks a row) x (rows), so the row and
+//     the chunk come from the thread's index with no division; offsets are
+//     32-bit while N * B < 2^31.
+//   * The row's interval is one int2 load (a broadcast among the row's
+//     threads); the bucket edges (B <= 64) are staged in shared memory
+//     once a block.
+//   * Loads and stores carry streaming hints (__ldcs, __stcs): nothing is
+//     read twice.
+//   * The product x * m is taken per value in float32 and rounded back to
+//     the counts' type; for bfloat16 that is exact, since m is 0 or 1.
+//   * A scalar path (one value a thread, the interval as two int loads)
+//     covers B not a multiple of the vector width and views that are not
+//     16-byte aligned.
 //   * Launches on the given stream, allocates nothing, does not
 //     synchronise, returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxB = 64;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
+// x * m of one value, from and back to its bits (float32, or bfloat16 in
+// the low 16 bits)
 template <typename T>
+__device__ __forceinline__ unsigned mask_bits(unsigned x, float m) {
+  if constexpr (std::is_same_v<T, float>) {
+    return __float_as_uint(__uint_as_float(x) * m);
+  } else {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(__uint_as_float(x << 16) * m));
+  }
+}
+
+template <typename T, int VEC, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 warp_mask(const T* __restrict__ counts, const int* __restrict__ ivl, const int* __restrict__ bedges,
           long long N, int B, T* __restrict__ out) {
+  using Idx = std::conditional_t<WIDE, long long, int>;
+  using Bits = std::conditional_t<sizeof(T) == 4, unsigned, unsigned short>;
   __shared__ int edges[kMaxB + 1];
-  for (int i = threadIdx.x; i <= B; i += blockDim.x) edges[i] = bedges[i];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i <= B; i += blockDim.x * blockDim.y) edges[i] = __ldg(bedges + i);
   __syncthreads();
-  const long long total = N * B;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long n = i / B;
-    const int b = (int)(i - n * B);
-    const int s = __ldg(ivl + 2 * n), e = __ldg(ivl + 2 * n + 1);
-    const float m = (s < edges[b + 1] && edges[b] < e) ? 1.0f : 0.0f;
-    put(out + i, widen(counts[i]) * m);
+  const Idx n = (Idx)blockIdx.x * (Idx)blockDim.y + (Idx)threadIdx.y;
+  if (n >= N) return;
+  const int b0 = threadIdx.x * VEC;
+  int s, e;
+  if constexpr (VEC > 1) {
+    const int2 iv = __ldg(reinterpret_cast<const int2*>(ivl) + n);
+    s = iv.x;
+    e = iv.y;
+  } else {
+    s = __ldg(ivl + 2 * n);
+    e = __ldg(ivl + 2 * n + 1);
   }
+  float m[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) m[v] = (s < edges[b0 + v + 1] && edges[b0 + v] < e) ? 1.0f : 0.0f;
+  const Idx i = n * (Idx)B + (Idx)b0;
+  if constexpr (VEC == 1) {
+    const Bits x = __ldcs(reinterpret_cast<const Bits*>(counts) + i);
+    __stcs(reinterpret_cast<Bits*>(out) + i, (Bits)mask_bits<T>(x, m[0]));
+  } else {
+    constexpr int kPerWord = 4 / sizeof(T);   // values in each 32-bit word of the chunk
+    const uint4 x = __ldcs(reinterpret_cast<const uint4*>(counts + i));
+    const unsigned in[4] = {x.x, x.y, x.z, x.w};
+    unsigned o[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      if constexpr (kPerWord == 1) {
+        o[w] = mask_bits<T>(in[w], m[w]);
+      } else {
+        o[w] = mask_bits<T>(in[w] & 0xffffu, m[2 * w]) |
+               (mask_bits<T>(in[w] >> 16, m[2 * w + 1]) << 16);
+      }
+    }
+    __stcs(reinterpret_cast<uint4*>(out + i), make_uint4(o[0], o[1], o[2], o[3]));
+  }
+}
+
+template <typename T, int VEC>
+int launch_vec(const void* counts, const int* ivl, const int* bedges, long long N, int B,
+               void* out, cudaStream_t st) {
+  const int per_row = B / VEC;
+  const dim3 block(per_row, kThreads / per_row);
+  const long long blocks = (N + block.y - 1) / block.y;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const T* c = static_cast<const T*>(counts);
+  T* o = static_cast<T*>(out);
+  if (N * B < (1LL << 31)) {
+    warp_mask<T, VEC, false><<<(unsigned)blocks, block, 0, st>>>(c, ivl, bedges, N, B, o);
+  } else {
+    warp_mask<T, VEC, true><<<(unsigned)blocks, block, 0, st>>>(c, ivl, bedges, N, B, o);
+  }
+  return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* counts, const int* ivl, const int* bedges, long long N, int B, void* out,
            cudaStream_t st) {
-  const long long total = N * B;
-  const long long want = (total + kThreads - 1) / kThreads;
-  const unsigned blocks = (unsigned)(want < (1LL << 20) ? want : (1LL << 20));
-  warp_mask<T><<<blocks, kThreads, 0, st>>>(static_cast<const T*>(counts), ivl, bedges, N, B,
-                                            static_cast<T*>(out));
-  return cudaGetLastError();
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = B % kVec == 0 && reinterpret_cast<uintptr_t>(counts) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(ivl) % 8 == 0;
+  return vec ? launch_vec<T, kVec>(counts, ivl, bedges, N, B, out, st)
+             : launch_vec<T, 1>(counts, ivl, bedges, N, B, out, st);
 }
 
 }  // namespace

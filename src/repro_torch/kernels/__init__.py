@@ -5,7 +5,7 @@
                    with the MIN/MAX extremum channel), and the delivery-only
                    scatters of ETR hops
   flash_attention  the LM's attention (prefill and decode)
-  embedding_bag    DLRM's table lookups
+  embedding_bag    DLRM's table lookups (all of a forward's tables in one launch)
   bucket_scatter   the sorted segment-sum under the GNNs' aggregations
   interval_warp    TimeWarp bucket alignment (no path calls it)
 

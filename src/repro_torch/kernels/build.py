@@ -56,7 +56,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                              _I, _P, _P),
     },
     "embedding_bag": {
-        "embedding_bag_fwd": (_P, _L, _I, _P, _L, _I, _I, _P, _P),
+        "embedding_bags_fwd": (_P, _P, _I, _I, _P, _L, _I, _I, _P, _L, _P),
     },
     "bucket_scatter": {
         "bucket_scatter_fwd": (_P, _I, _L, _P, _L, _I, _P, _P),

@@ -1,10 +1,13 @@
 """The plain version of EmbeddingBag: gather, mask, reduce.
 
-The counterpart of the reference's ``kernels/embedding_bag/ref.py::
-embedding_bag_ref``.  It is the CPU path of ``embedding_bag`` and the card's
-oracle for the kernel.
+``embedding_bag_plain`` is the counterpart of the reference's
+``kernels/embedding_bag/ref.py::embedding_bag_ref``; ``embedding_bags_plain``
+is it once per table, stacked.  They are the CPU paths of ``embedding_bag``
+and ``embedding_bags`` and the card's oracles for the kernel.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -27,3 +30,14 @@ def embedding_bag_plain(table: torch.Tensor, indices: torch.Tensor,
     if mode == "mean":
         out = out / valid.sum(dim=1, keepdim=True).clamp_min(1).float()
     return out.to(table.dtype)
+
+
+def embedding_bags_plain(tables: Sequence[torch.Tensor], indices: torch.Tensor,
+                         mode: str = "sum") -> torch.Tensor:
+    """tables: F tensors [V_f, D]; indices [B, F, L] int32 → [B, F, D]:
+    ``embedding_bag_plain(tables[f], indices[:, f, :])`` for each f, stacked."""
+    if len(tables) != indices.shape[1] or not tables:
+        raise ValueError(f"one table per column of indices: got {len(tables)} tables "
+                         f"for {indices.shape[1]} columns")
+    return torch.stack([embedding_bag_plain(t, indices[:, f, :], mode)
+                        for f, t in enumerate(tables)], dim=1)

@@ -1,9 +1,10 @@
 """DLRM (RM2 variant): huge sparse embedding tables → dot interaction → MLPs.
 
 The counterpart of the reference's ``models/dlrm.py`` on one card (no
-sharding).  Every sparse feature is one ``kernels.embedding_bag`` call over
-its table; ``retrieval_score`` scores one query against N candidate
-embeddings as one matrix-vector product and a top-k.
+sharding).  The reference looks up each sparse feature's table on its own;
+here one ``kernels.embedding_bags`` call (one launch) looks up all of them,
+straight into the interaction's input.  ``retrieval_score`` scores one query
+against N candidate embeddings as one matrix-vector product and a top-k.
 """
 from __future__ import annotations
 
@@ -70,11 +71,11 @@ def init_params(cfg: DLRMCfg, generator: torch.Generator,
                 top=mlp_params(generator, top_sizes, device=dev))
 
 
-def _bags(cfg: DLRMCfg, params: Params, sparse_idx: torch.Tensor) -> List[torch.Tensor]:
-    idx = sparse_idx.to(torch.int32)
-    return [EB.embedding_bag(params["tables"][f], idx[:, f, :].contiguous(), mode="sum",
-                             impl=cfg.impl)
-            for f in range(cfg.n_sparse)]
+def _bags(cfg: DLRMCfg, params: Params, sparse_idx: torch.Tensor,
+          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every feature's bag sums, [B, n_sparse, d] (into ``out`` where given)."""
+    return EB.embedding_bags(params["tables"], sparse_idx.to(torch.int32).contiguous(), "sum",
+                             out=out, impl=cfg.impl)
 
 
 def forward(cfg: DLRMCfg, params: Params, dense: torch.Tensor,
@@ -82,7 +83,9 @@ def forward(cfg: DLRMCfg, params: Params, dense: torch.Tensor,
     """dense [B, n_dense] float; sparse_idx [B, n_sparse, multi_hot] int →
     float32 logits [B]."""
     bot = mlp_apply(params["bot"], dense.to(cfg.dtype), final_act=True)     # [B, d]
-    feats = torch.stack([bot] + _bags(cfg, params, sparse_idx), dim=1)     # [B, F+1, d]
+    feats = bot.new_empty((bot.shape[0], cfg.n_sparse + 1, bot.shape[1]))  # [B, F+1, d]
+    feats[:, 0] = bot
+    _bags(cfg, params, sparse_idx, out=feats[:, 1:])
     inter = torch.bmm(feats, feats.transpose(1, 2))                        # pairwise dots
     fdim = feats.shape[1]
     iu, ju = torch.triu_indices(fdim, fdim, offset=1, device=feats.device)
@@ -98,7 +101,7 @@ def serve_score(cfg: DLRMCfg, params: Params, dense: torch.Tensor,
 def forward_user_tower(cfg: DLRMCfg, params: Params, dense: torch.Tensor,
                        sparse_idx: torch.Tensor) -> torch.Tensor:
     bot = mlp_apply(params["bot"], dense.to(cfg.dtype), final_act=True)
-    return (bot + sum(_bags(cfg, params, sparse_idx))).float()
+    return (bot + _bags(cfg, params, sparse_idx).sum(dim=1)).float()
 
 
 def retrieval_score(cfg: DLRMCfg, params: Params, dense_q: torch.Tensor,

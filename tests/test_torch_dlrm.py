@@ -4,7 +4,8 @@ on the CPU.
 EmbeddingBag: the port's plain version and its kernel wrapper (which runs
 the plain version on CPU tensors) against the reference's
 ``embedding_bag_ref`` and its Pallas kernel in interpret mode, at the sweep
-shapes of ``tests/test_kernels.py``.  Model: DLRM-RM2 ``SMOKE`` (every width
+shapes of ``tests/test_kernels.py``; the table-batched wrapper and its
+plain version against both, table by table, at 1 and 26 tables.  Model: DLRM-RM2 ``SMOKE`` (every width
 of RM2, 512 rows a table) with the reference's ``init_params(PRNGKey(0))``
 carried across by ``interop``; ``forward``, ``serve_score`` and
 ``retrieval_score`` against the reference with ``ebag_impl=
@@ -85,6 +86,50 @@ def test_embedding_bag_past_the_table_departs_from_reference(mode):
     for fn in (EB.embedding_bag, EB.embedding_bag_plain):
         got = fn(torch.from_numpy(table), torch.from_numpy(idx), mode).numpy()
         np.testing.assert_array_equal(got, ref(idx))
+
+
+@pytest.mark.parametrize("F", [1, 26])
+@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bags_match_reference_table_by_table(F, L, mode):
+    """Every table its own V, indices up to 4 past each V (clamped to that
+    table's last row and counted) and padding (-1; bag 0 all padding): each
+    table's bags equal ``embedding_bag_ref`` and the Pallas kernel in
+    interpret mode on that table; the wrapper equals the plain version, and
+    with ``out=`` it fills a slice of a NaN-poisoned buffer and nothing
+    else."""
+    rng = np.random.default_rng(100 * F + L)
+    D, Bb = 16, 24
+    vocabs = rng.integers(1, 200, size=F)
+    tables = [rng.normal(size=(v, D)).astype(np.float32) for v in vocabs]
+    idx = np.stack([rng.integers(-1, v + 5, size=(Bb, L)) for v in vocabs], axis=1)
+    idx = idx.astype(np.int32)
+    idx[0] = -1
+    tt = [torch.from_numpy(t) for t in tables]
+    plain = EB.embedding_bags_plain(tt, torch.from_numpy(idx), mode)
+    assert plain.dtype == torch.float32 and tuple(plain.shape) == (Bb, F, D)
+    for f, table in enumerate(tables):
+        want = np.asarray(embedding_bag_ref(jnp.asarray(table), jnp.asarray(idx[:, f]), mode))
+        kern = np.asarray(embedding_bag_jax(jnp.asarray(table), jnp.asarray(idx[:, f]),
+                                            mode=mode, impl="pallas", interpret=True,
+                                            block_b=8))
+        np.testing.assert_allclose(plain[:, f].numpy(), want, atol=1e-5)
+        np.testing.assert_allclose(plain[:, f].numpy(), kern, atol=1e-5)
+        assert torch.equal(plain[:, f], EB.embedding_bag(tt[f], torch.from_numpy(idx[:, f])
+                                                         .contiguous(), mode))
+    assert torch.equal(EB.embedding_bags(tt, torch.from_numpy(idx), mode), plain)
+    buf = torch.full((Bb, F + 2, D), float("nan"))
+    got = EB.embedding_bags(tt, torch.from_numpy(idx), mode, out=buf[:, 1:F + 1])
+    assert got.data_ptr() == buf[:, 1:].data_ptr() and torch.equal(got, plain)
+    assert bool(torch.isnan(buf[:, 0]).all() and torch.isnan(buf[:, F + 1]).all())
+
+
+def test_embedding_bags_want_one_table_a_column():
+    tables = [torch.ones(3, 4)] * 2
+    with pytest.raises(ValueError):
+        EB.embedding_bags(tables, torch.zeros(2, 3, 1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        EB.embedding_bags(tables, torch.zeros(2, 2, 1, dtype=torch.int32), "max")
 
 
 def test_embedding_bag_rejects_unknown_mode_and_impl():

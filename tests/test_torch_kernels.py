@@ -18,7 +18,9 @@ Attention: atol = rtol = 2e-5 in float32 (the tolerance of
 bf16 rounding of the output, tighter than that sweep's 2e-2, since kernel and
 plain version both sum in float32 (the tensor-core route also rounds p to
 bf16 before P V, which moves each term by at most 2^-9 of its weight).
-Each attention test also checks which of the three routes launched.  EmbeddingBag: atol 1e-5.  Segment-sum
+Each attention test also checks which of the three routes launched.  EmbeddingBag: atol 1e-5
+against the plain version (exact at one row a bag), and the table-batched
+launch bit-equal to its single-table calls.  Segment-sum
 (B5): small integers are exact in any order (``torch.equal``); normal
 values within atol = rtol = 1e-4 in float32 (the reference's sweep) and one
 bf16 rounding (rtol 2^-7) in bfloat16, since both versions sum in float32.
@@ -689,6 +691,80 @@ def test_embedding_bag_skips_indices_past_the_table(dev):
     assert torch.equal(out, EB.embedding_bag_plain(table, idx, "mean"))
 
 
+def _bag_operands(rng, F, Bb, L, D, dev, past=5):
+    """F tables of their own V (1..300 rows) and [Bb, F, L] indices with
+    padding and indices up to ``past`` beyond each table's V."""
+    vocabs = rng.integers(1, 300, size=F)
+    tables = [torch.from_numpy(rng.normal(size=(v, D)).astype(np.float32)).to(dev)
+              for v in vocabs]
+    idx = np.stack([rng.integers(-1, v + past, size=(Bb, L)) for v in vocabs], axis=1)
+    return tables, torch.from_numpy(idx.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("F,D,L", [(1, 64, 1), (26, 64, 1), (26, 64, 3), (64, 64, 1),
+                                   (26, 13, 1), (26, 13, 3), (5, 100, 2), (3, 256, 4),
+                                   (7, 16, 1)])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bags(dev, F, D, L, mode):
+    """One launch over F tables equals the F single-table calls bit for bit,
+    the plain version exactly at L = 1 (a bag is one row) and within atol
+    1e-5 at L > 1; written through ``out=`` into a slice of a NaN-poisoned
+    buffer it leaves the neighbouring slots untouched.  D = 13 takes the
+    narrow path."""
+    rng = np.random.default_rng(F * 1000 + D + L)
+    tables, idx = _bag_operands(rng, F, 300, L, D, dev)
+    n0 = EB.LAUNCHES["embedding_bag"]
+    out = EB.embedding_bags(tables, idx, mode)
+    torch.cuda.synchronize()
+    assert EB.LAUNCHES["embedding_bag"] == n0 + 1
+    assert out.shape == (300, F, D)
+    singles = torch.stack([EB.embedding_bag(t, idx[:, f].contiguous(), mode)
+                           for f, t in enumerate(tables)], dim=1)
+    assert torch.equal(out, singles)
+    want = EB.embedding_bags_plain(tables, idx, mode)
+    if L == 1:
+        assert torch.equal(out, want)
+    else:
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+    buf = torch.full((300, F + 2, D), float("nan"), device=dev)
+    EB.embedding_bags(tables, idx, mode, out=buf[:, 1:F + 1])
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:, 1:F + 1], out)
+    assert bool(torch.isnan(buf[:, 0]).all() and torch.isnan(buf[:, F + 1]).all())
+
+
+def test_embedding_bags_table_count_and_empty_shapes(dev):
+    """64 tables are taken and 65 refused; a batch of 0 bags launches
+    nothing; bags of L = 0 are zeros (one launch)."""
+    rng = np.random.default_rng(3)
+    tables, idx = _bag_operands(rng, 65, 8, 1, 64, dev)
+    EB.embedding_bags(tables[:64], idx[:, :64].contiguous())
+    with pytest.raises(ValueError):
+        EB.embedding_bags(tables, idx)
+    n0 = EB.LAUNCHES["embedding_bag"]
+    empty = EB.embedding_bags(tables[:26], torch.zeros(0, 26, 1, dtype=torch.int32, device=dev))
+    assert empty.shape == (0, 26, 64) and EB.LAUNCHES["embedding_bag"] == n0
+    for mode in ("sum", "mean"):
+        z = EB.embedding_bags(tables[:26], torch.zeros(8, 26, 0, dtype=torch.int32, device=dev),
+                              mode)
+        torch.cuda.synchronize()
+        assert torch.equal(z, torch.zeros(8, 26, 64, device=dev))
+    assert EB.LAUNCHES["embedding_bag"] == n0 + 2
+
+
+def test_embedding_bags_refuse_bad_operands(dev):
+    rng = np.random.default_rng(4)
+    tables, idx = _bag_operands(rng, 3, 8, 2, 64, dev)
+    with pytest.raises(ValueError):
+        EB.embedding_bags(tables, idx.long())
+    with pytest.raises(ValueError):
+        EB.embedding_bags(tables[:2] + [tables[2][:, :32].contiguous()], idx)   # D differs
+    with pytest.raises(ValueError):
+        EB.embedding_bags(tables, idx, out=torch.empty(8, 64, 3, device=dev).transpose(1, 2))
+    with pytest.raises(ValueError):
+        EB.embedding_bags(tables, idx[:, :, :1].expand(8, 3, 2))             # not contiguous
+
+
 def test_embedding_bag_refuses_bad_operands(dev):
     table = torch.ones(10, 64, device=dev)
     idx = torch.zeros(4, 2, dtype=torch.int32, device=dev)
@@ -857,9 +933,13 @@ def _identical(a, b):
 
 
 @pytest.mark.parametrize("N,B", [(512, 8), (3000, 16), (100, 32), (1_380_000, 16), (77, 1),
-                                 (1000, 64)])
+                                 (1000, 64), (1001, 13), (1003, 16), (333, 64), (5, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_interval_warp(dev, N, B, dtype):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_interval_warp(dev, N, B, dtype, offset):
+    """The vector path (16-byte chunks: B a multiple of 4 in float32, of 8
+    in bfloat16) and the scalar path (other B, and, at ``offset`` 1, a
+    contiguous view that starts one element into a larger buffer)."""
     rng = np.random.default_rng(N + B)
     cnts = rng.normal(size=(N, B)).astype(np.float32)
     for v, p in ((np.nan, 0.02), (np.inf, 0.02), (-np.inf, 0.02), (-0.0, 0.05)):
@@ -867,7 +947,10 @@ def test_interval_warp(dev, N, B, dtype):
     ivl = np.stack([rng.integers(-50, 1000, N), rng.integers(0, 1200, N)], 1).astype(np.int32)
     be = np.linspace(0, 1100, B + 1).astype(np.int32)
     t = lambda a: torch.from_numpy(a).to(dev)
-    counts = t(cnts).to(dtype)
+    buf = torch.empty(N * B + offset, dtype=dtype, device=dev)
+    counts = buf[offset:].view(N, B)
+    counts.copy_(t(cnts).to(dtype))
+    assert counts.is_contiguous()
     n0 = IW.LAUNCHES["interval_warp"]
     out = IW.interval_warp(counts, t(ivl), t(be))
     torch.cuda.synchronize()
