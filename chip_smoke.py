@@ -39,8 +39,11 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                device events do not lower it (``device_mean_ms``); and
                ``turns_ms`` / ``library_turns_ms``, the kernel's and the
                library call's single calls in 20 alternating pairs
-               (``time_ms_turns``).  B4, which no engine path reaches, is held on
-               a main-path ETR delivery's edges.  Each B1-B3 line also names
+               (``time_ms_turns``).  B4, which no engine path reaches, is held
+               (torch.equal) on a main-path ETR delivery's CSR and on the
+               graph's global arrival CSR (``[dense,...]``), each with a
+               seed-0 gate that keeps half the edges; it fails unless the
+               trace counts two kernel launches a call.  Each B1-B3 line also names
                its call's shape: Q, V, E, C or B, whether the weights are
                shared across queries, the largest arrival degree, and the
                lane group G the wrapper launched with (``lane_group`` of the
@@ -546,18 +549,44 @@ def run_job(graph, job, impl: str = "cuda"):
                                n_buckets=16, device="cuda")
 
 
-def phase_main(recorder: Recorder):
-    """Returns (report dict, graph, the jobs run: (name, mode, split, batch))."""
-    from repro_torch.core import engine as E
-    from repro_torch.core import engine_sliced as ES
+def main_graph():
+    """The main path's LDBC graph (PERSONS, SEED) and its generate seconds."""
     from repro_torch.graphdata.ldbc import LdbcParams, generate_ldbc
-    from repro_torch.graphdata.queries import TEMPLATES, make_workload
-    from repro_torch.kernels import hop_scatter as HK
 
     t0 = time.perf_counter()
     g = generate_ldbc(LdbcParams(n_persons=PERSONS, dynamic=True, degree_dist="zipf",
                                  align=16, seed=SEED))
-    t_gen = time.perf_counter() - t0
+    return g, time.perf_counter() - t0
+
+
+def main_jobs(g) -> list:
+    """The main path's jobs (name, mode, split, batch): Q1-Q8 in each mode
+    at two splits, then the MIN/MAX shapes."""
+    from repro_torch.core import engine as E
+    from repro_torch.graphdata.queries import TEMPLATES, make_workload
+
+    wl = make_workload(g, n_per_template=N_BATCH, seed=SEED)
+    by_t = {t: [i.qry for i in wl if i.template == t] for t in TEMPLATES}
+    jobs = []
+    for t, qs in by_t.items():
+        n = qs[0].n_vertices
+        for mode in (E.MODE_STATIC, E.MODE_BUCKET, E.MODE_INTERVAL):
+            batch = qs if mode != E.MODE_INTERVAL else qs[:1]
+            for split in sorted({n - 1, n // 2}):
+                jobs.append((t, mode, split, batch))
+    for name, q in minmax_shapes(g).items():
+        for mode in (E.MODE_STATIC, E.MODE_BUCKET, E.MODE_INTERVAL):
+            jobs.append((name, mode, 0, [q] * (N_BATCH if mode != E.MODE_INTERVAL else 1)))
+    return jobs
+
+
+def phase_main(recorder: Recorder):
+    """Returns (report dict, graph, the jobs run: (name, mode, split, batch))."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import engine_sliced as ES
+    from repro_torch.kernels import hop_scatter as HK
+
+    g, t_gen = main_graph()
     t0 = time.perf_counter()
     g.traversal, g.etr_tables  # noqa: B018 — host CSR and ETR rank tables
     t_tables = time.perf_counter() - t0
@@ -577,18 +606,7 @@ def phase_main(recorder: Recorder):
     log("main: arrival degree " + ", ".join(f"{k} {v:g}"
                                              for k, v in info["arrival_degree"].items()))
 
-    wl = make_workload(g, n_per_template=N_BATCH, seed=SEED)
-    by_t = {t: [i.qry for i in wl if i.template == t] for t in TEMPLATES}
-    jobs = []
-    for t, qs in by_t.items():
-        n = qs[0].n_vertices
-        for mode in (E.MODE_STATIC, E.MODE_BUCKET, E.MODE_INTERVAL):
-            batch = qs if mode != E.MODE_INTERVAL else qs[:1]
-            for split in sorted({n - 1, n // 2}):
-                jobs.append((t, mode, split, batch))
-    for name, q in minmax_shapes(g).items():
-        for mode in (E.MODE_STATIC, E.MODE_BUCKET, E.MODE_INTERVAL):
-            jobs.append((name, mode, 0, [q] * (N_BATCH if mode != E.MODE_INTERVAL else 1)))
+    jobs = main_jobs(g)
 
     rows = []
     HK.reset_launches()           # counts are 0 just before the main path
@@ -736,14 +754,16 @@ def device_ms(fn, iters: int = 10) -> float | None:
     return sum(ev.self_device_time_total for ev in evs) / 1e3 / iters
 
 
-def device_mean_ms(fn, iters: int = 10) -> float | None:
+def device_mean_ms(fn, iters: int = 10, per_call: dict | None = None) -> float | None:
     """Device time of one call of ``fn`` read so that dropped device events
     do not lower it: for each kernel it launches, the mean time of its traced
     launches times its launches a call (traced launches / iters, rounded, at
     least 1), from the profiler's active cycle after a warm-up cycle of
     ``iters`` calls.  Late in a long process a trace keeps fewer device events
     than there were launches, and ``device_ms``'s sum then reads low.  None
-    if no device event was traced."""
+    if no device event was traced.  Where ``per_call`` is given, its
+    ``"launches"`` gets the kernel launches a call read from the same trace
+    (the sum of those per-kernel counts; 0 if none was traced)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -757,11 +777,13 @@ def device_mean_ms(fn, iters: int = 10) -> float | None:
             torch.cuda.synchronize()
             prof.step()
     evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and ev.count]
+    a_call = [max(1, round(ev.count / iters)) for ev in evs]
+    if per_call is not None:
+        per_call["launches"] = sum(a_call)
     if not evs:
         log("device_mean_ms: the trace kept no device event")
         return None
-    return sum(ev.self_device_time_total / ev.count * max(1, round(ev.count / iters))
-               for ev in evs) / 1e3
+    return sum(ev.self_device_time_total / ev.count * n for ev, n in zip(evs, a_call)) / 1e3
 
 
 TIMERS = (("ms", time_ms), ("b2b_ms", b2b_ms), ("device_ms", device_ms),
@@ -769,7 +791,7 @@ TIMERS = (("ms", time_ms), ("b2b_ms", b2b_ms), ("device_ms", device_ms),
 TURNS = 20
 
 
-def timings(kern, plain, libraries: dict) -> dict:
+def timings(kern, plain, libraries: dict, per_call: dict | None = None) -> dict:
     """A kernel line's times: for the kernel, its plain version and each
     library call (``libraries``, {label: call}: single PyTorch calls that
     compute the same function; may be empty), in that order, ``ms``
@@ -778,12 +800,14 @@ def timings(kern, plain, libraries: dict) -> dict:
     line's ``library_*`` is the one fastest in a single call; ``library_call``
     names the call taken where it has a label other than "call".  Then ``turns_ms`` and ``library_turns_ms``: the
     kernel's and that library call's single calls timed in ``TURNS``
-    alternating pairs (``time_ms_turns``)."""
+    alternating pairs (``time_ms_turns``).  ``per_call``, where given, gets
+    the kernel's launches a call from its ``device_mean_ms`` trace."""
     t = {}
     for who, fn in (("", kern), ("plain_", plain),
                     *((f"library_{label}_", f) for label, f in libraries.items())):
         for how, timer in TIMERS:
-            t[who + how] = timer(fn)
+            kw = dict(per_call=per_call) if who == "" and timer is device_mean_ms else {}
+            t[who + how] = timer(fn, **kw)
     best = min(libraries, key=lambda label: t[f"library_{label}_ms"]) if libraries else None
     for how, _ in TIMERS:
         key = f"library_{best}_{how}"
@@ -801,9 +825,12 @@ def fmt_times(t: dict) -> str:
 
 
 def hop_entry(launches: dict, name, variant, kern, plain, library, nbytes, flops,
-              shape=None) -> dict:
+              shape=None, launches_a_call: int | None = None) -> dict:
     """One B1-B4 line: the kernel held to its plain version, timed by
-    ``timings`` (``library``: one call or None), beside its bound."""
+    ``timings`` (``library``: one call or None), beside its bound.  Where
+    ``launches_a_call`` is given, the kernel launches a call that its
+    ``device_mean_ms`` trace counted are kept as ``kernel_launches_a_call``
+    and must equal it."""
     got = kern()
     want = plain()
     torch.cuda.synchronize()
@@ -815,7 +842,14 @@ def hop_entry(launches: dict, name, variant, kern, plain, library, nbytes, flops
         err["max_abs_err"] = max(err["max_abs_err"], e["max_abs_err"])
         err["n_ge_2_24"] += e["n_ge_2_24"]
     del got, want
-    times = timings(kern, plain, {} if library is None else {"call": library})
+    per_call = {} if launches_a_call is not None else None
+    times = timings(kern, plain, {} if library is None else {"call": library}, per_call)
+    if per_call is not None:
+        if per_call["launches"] != launches_a_call:
+            raise AssertionError(f"kernel {name}[{variant}]: the trace counted "
+                                 f"{per_call['launches']} kernel launches a call, not "
+                                 f"{launches_a_call}")
+        shape = dict(shape or {}, kernel_launches_a_call=per_call["launches"])
     b_ms, b_by = bound(nbytes, flops)
     e = dict(name=f"{name}[{variant}]", route="cuda", source=SOURCE[name],
              replaces=REPLACES[name], launches=launches[name],
@@ -938,32 +972,71 @@ def hop_kernel_lines(inputs: dict, launches: dict, tag: str = "",
     return entries
 
 
-def phase_kernels(recorder: Recorder, launches: dict) -> list:
+def b4_operands(Qn: int, ptr, arr_ptr) -> dict:
+    """B4's operands, which no engine path gives it, on two CSRs: ``sliced``,
+    ``ptr`` of the largest main-path ETR delivery (static, C = 1; Q = ``Qn``);
+    ``dense``, the graph's global arrival CSR ``arr_ptr`` (the dense agg-min
+    hop's).  On each, made on the card from seed 0: m_e [Qn, E] integers 1 ..
+    499 and an alive gate that marks half the edges.  (The delivery's own
+    counts would give an all-dead gate there, which leaves the selection
+    untested.)"""
+    out = {}
+    for tag, p in (("sliced", ptr), ("dense", arr_ptr)):
+        E = int(p[-1])
+        gen = torch.Generator(device=p.device).manual_seed(0)
+        m_e = torch.randint(1, 500, (Qn, E), generator=gen, device=p.device).float()
+        alive = (torch.rand((Qn, E), generator=gen, device=p.device) < 0.5).float()
+        out[tag] = (m_e, alive, p)
+    return out
+
+
+def b4_entries(operands: dict, launches: dict) -> list:
+    """B4 lines, min and max on each of ``b4_operands``: the kernel
+    ``torch.equal`` to its plain version, timed by ``hop_entry`` beside
+    ``scatter_reduce_``, and its two kernel launches a call (the seed kernel
+    and the tiles) counted from its trace.  Named ``scatter_extremum[min]`` /
+    ``[max]`` on the sliced operands and ``[dense,min]`` / ``[dense,max]`` on
+    the dense ones."""
     from repro_torch.kernels import hop_scatter as HK
 
-    entries = hop_kernel_lines(recorder.inputs, launches)
-    entry = lambda *a, **kw: entries.append(hop_entry(launches, *a, **kw))
-
-    # B4 on the edges of the largest main-path ETR delivery (static, C = 1)
-    key = ("scatter_cols", 1, False)
-    contrib, ptr = recorder.inputs[key][1]
-    Qn, E = contrib.shape[:2]
-    V = ptr.numel() - 1
-    rng = np.random.default_rng(0)
-    m_e = torch.from_numpy(rng.integers(1, 500, size=(Qn, E)).astype(np.float32)).to(contrib.device)
-    alive = (contrib.reshape(Qn, E) > 0).float()
-    for op_is_min in (True, False):
-        neutral = float("inf") if op_is_min else float("-inf")
+    entries = []
+    for tag, (m_e, alive, ptr) in operands.items():
+        Qn, E = m_e.shape
+        V = ptr.numel() - 1
+        deg = ptr[1:] - ptr[:-1]
         seg = HK.segment_ids(ptr, E).expand(Qn, E)
-        gated = torch.where(alive > 0, m_e, torch.full_like(m_e, neutral))
-        out0 = torch.full((Qn, V), neutral, device=m_e.device)
-        red = "amin" if op_is_min else "amax"
-        library = lambda out0=out0, gated=gated, red=red: out0.clone().scatter_reduce_(
-            1, seg, gated, red, include_self=True)
-        entry("scatter_extremum", "min" if op_is_min else "max",
-              lambda op=op_is_min, n=neutral: (HK.scatter_extremum(m_e, alive, ptr, n, op), None),
-              lambda op=op_is_min, n=neutral: (HK.scatter_extremum_plain(m_e, alive, ptr, n, op), None),
-              library, 4.0 * (V + 1 + 2 * Qn * E + Qn * V), 1.0 * Qn * E)
+        vec = HK.vector_width(HK.VEC, (m_e, HK.query_stride(m_e, "m_e")),
+                              (alive, HK.query_stride(alive, "alive")))
+        shape = dict(Q=Qn, V=V, E=E, max_deg=int(deg.max()), empty_runs=int((deg == 0).sum()),
+                     alive_share=float(alive.mean()), vec=vec, tiles=HK.extremum_tiles(E))
+        for op_is_min in (True, False):
+            neutral = float("inf") if op_is_min else float("-inf")
+            kern = lambda m=m_e, a=alive, p=ptr, op=op_is_min, n=neutral: (
+                HK.scatter_extremum(m, a, p, n, op), None)
+            plain = lambda m=m_e, a=alive, p=ptr, op=op_is_min, n=neutral: (
+                HK.scatter_extremum_plain(m, a, p, n, op), None)
+            variant = ("" if tag == "sliced" else tag + ",") + ("min" if op_is_min else "max")
+            identical(kern()[0], plain()[0], f"kernel scatter_extremum[{variant}]")
+            gated = torch.where(alive > 0, m_e, torch.full_like(m_e, neutral))
+            out0 = torch.full((Qn, V), neutral, device=m_e.device)
+            red = "amin" if op_is_min else "amax"
+            library = lambda out0=out0, gated=gated, seg=seg, red=red: out0.clone().scatter_reduce_(
+                1, seg, gated, red, include_self=True)
+            entries.append(hop_entry(launches, "scatter_extremum", variant, kern, plain, library,
+                                     4.0 * (V + 1 + 2 * Qn * E + Qn * V), 1.0 * Qn * E,
+                                     dict(shape, torch_equal=True), launches_a_call=2))
+            del gated, out0, library
+        del seg
+    return entries
+
+
+def phase_kernels(recorder: Recorder, launches: dict, graph) -> list:
+    entries = hop_kernel_lines(recorder.inputs, launches)
+    # B4 on the CSR of the largest main-path ETR delivery (static, C = 1)
+    # and on the graph's global arrival CSR
+    contrib, ptr = recorder.inputs[("scatter_cols", 1, False)][1]
+    entries += b4_entries(b4_operands(contrib.shape[0], ptr,
+                                      graph.device_arrays("cuda")["arr_ptr"]), launches)
     return entries
 
 
@@ -2241,7 +2314,7 @@ def main(argv=None) -> int:
     REPORT["main"], graph, jobs = phase_main(rec)
     REPORT["profile"] = phase_profile(graph, jobs)
     rec.capture(lambda j: run_job(graph, jobs[j]))
-    kernels = phase_kernels(rec, REPORT["main"]["launches"])
+    kernels = phase_kernels(rec, REPORT["main"]["launches"], graph)
     kernels += warp_entries(graph, jobs)
     rec.inputs.clear()            # the kernels phase's operands: not the server's memory
     free_memory()

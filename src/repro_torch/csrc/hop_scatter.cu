@@ -66,11 +66,45 @@
 //     the channel once.
 // B >= 32 keeps a block per (destination, query) over shared memory.
 //
+// Gated segment min/max (B4), out[q, v] = min or max of m_e[q, e] over v's
+// run with alive[q, e] > 0, neutral where none is.  It moves 4 (V + 1 +
+// 2 Q E + Q V) bytes and does one compare an edge, so bytes bound it; the
+// TPU kernel's VMEM blocks become edge-balanced tiles:
+//   * A block takes a tile of 1,024 consecutive edges (4 a thread; 8 was
+//     slower), whatever the runs are, so hubs, skew and empty runs cost no
+//     idle lanes.  A thread loads its K edges' m_e and alive together, as
+//     16-byte streaming loads where the wrapper found the query rows 16-byte
+//     aligned (else scalars), and selects with the gate: no branch before a
+//     load.  The next query's loads are issued before this one is reduced.
+//   * The destinations are found once a tile, for every query: a small first
+//     kernel finds each tile's first destination by a warp-wide 32-way
+//     search of ptr; the tile owns the destinations whose runs start in it,
+//     writes neutral for its empty ones and marks the first edge of each of
+//     the others in shared memory.  The query axis is a loop inside the
+//     block (strides mq and aq), so ptr is read once, not Q times.
+//   * Reduction: each thread folds its K edges, then a segmented scan over
+//     the block (head flags; __shfl_up_sync in each warp, the 8 warps'
+//     totals through shared memory) gives each thread the value of the run
+//     it continues, and the thread holding a run's last edge writes it.
+//   * A run that lies inside one tile has that one writer and a plain store.
+//     Only a run that crosses a tile's edge (at most two a tile) is combined
+//     across blocks, with atomicMin / atomicMax on the float's bits: a float
+//     with the sign bit clear orders as a signed int, one with it set in
+//     reverse as an unsigned int, so no decoding pass is needed.  The first
+//     kernel fills those destinations with neutral beforehand, so a call is
+//     two launches.  This order puts -0.0 below +0.0, where fminf / fmaxf
+//     inside a tile may return either, so a run holding both zeros may give
+//     either sign (the plain version's scatter_reduce_ does not fix it
+//     either).  NaN is left out: the engine's channels are integer-valued
+//     property columns and +-inf, and a NaN would order by its bits here.
+//     Min and max do not depend on order, so on those values the result is
+//     the plain version's, bit for bit.
+//
 // Sums of per-edge counts are exact in float32 while they stay below 2^24
 // (the engine's invariant), so the summation order of these kernels gives
-// the same bits as the plain versions'; above 2^24 it may not.  No atomics:
-// every output has one writer, and the order of its sum is fixed.  Each
-// entry point launches on the given stream, allocates nothing, does not
+// the same bits as the plain versions'; above 2^24 it may not.  B1-B3 use no
+// atomics: every output has one writer, and the order of its sum is fixed.
+// Each entry point launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError().
 //
 // Not done yet (later work): staging the gathered rows through shared memory
@@ -519,21 +553,282 @@ __global__ void interval_block_kernel(const IntervalArgs a) {
   if (kExtremum && threadIdx.x == 0) a.mch_out[(long long)q * a.V + v] = m;
 }
 
-// B4: segment min/max of a per-edge channel gated by alive > 0.
-__global__ void extremum_kernel(const float* __restrict__ m_e, long long mq,
-                                const float* __restrict__ alive, long long aq,
-                                const int* __restrict__ ptr, int V, float neutral,
-                                bool is_min, float* __restrict__ out) {
-  const int v = blockIdx.x * kWarpsPerBlock + threadIdx.y;
-  const int q = blockIdx.y;
-  if (v >= V) return;
-  const long long start = ptr[v], end = ptr[v + 1];
-  float m = neutral;
-  for (long long e = start + threadIdx.x; e < end; e += kWarp)
-    if (alive[q * aq + e] > 0.0f) m = fold(m, m_e[q * mq + e], is_min);
-  for (int off = kWarp >> 1; off > 0; off >>= 1)
-    m = fold(m, __shfl_xor_sync(kFull, m, off), is_min);
-  if (threadIdx.x == 0) out[(long long)q * V + v] = m;
+// ---------------------------------------------------------------- B4
+// Segment min/max of a per-edge channel gated by alive > 0, over tiles of
+// kExtThreads * kExtEdges consecutive edges (see the header).
+constexpr int kExtThreads = 256;
+constexpr int kExtWarps = kExtThreads / kWarp;
+constexpr int kExtEdges = 4;                       // edges a thread
+constexpr int kExtTile = kExtThreads * kExtEdges;  // edges a tile
+
+// The first i in [0, n) with a[i] >= key, or n: each round the warp's lanes
+// probe 32 evenly spaced entries and a ballot keeps the gap the answer lies
+// in, so 1,380,000 entries take 6 rounds of one load.  Every lane takes part.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a, int n, long long key) {
+  const int lane = threadIdx.x % kWarp;
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + kWarp - 1) / kWarp;
+    const int p = lo + lane * step;  // clamped: a hoisted load stays inside a
+    const unsigned ge = __ballot_sync(kFull, p >= hi || __ldg(a + min(p, hi - 1)) >= key);
+    if (ge == 0) {
+      lo += (kWarp - 1) * step + 1;
+    } else {
+      const int f = __ffs(ge) - 1;
+      hi = min(hi, lo + f * step);
+      if (f > 0) lo += (f - 1) * step + 1;
+      else hi = lo;
+    }
+  }
+  return lo;
+}
+
+// *p = min or max(*p, x) for x and *p not NaN.  With the sign bit clear a
+// float's bits order as a signed int, and every such float lies above every
+// float with it set; with it set they order in reverse as an unsigned int.
+// So a positive x (or +0.0) goes through the signed-int atomic and a
+// negative one (or -0.0) through the unsigned one, in place, with no
+// decoding: this order puts -0.0 just below +0.0.
+template <bool kMin>
+__device__ __forceinline__ void atomic_fold(float* p, float x) {
+  const bool neg = __float_as_int(x) < 0;
+  if (kMin) {
+    if (neg) atomicMax(reinterpret_cast<unsigned*>(p), __float_as_uint(x));
+    else atomicMin(reinterpret_cast<int*>(p), __float_as_int(x));
+  } else {
+    if (neg) atomicMin(reinterpret_cast<unsigned*>(p), __float_as_uint(x));
+    else atomicMax(reinterpret_cast<int*>(p), __float_as_int(x));
+  }
+}
+
+template <bool kMin>
+__device__ __forceinline__ float fold2(float a, float b) {
+  return kMin ? fminf(a, b) : fmaxf(a, b);
+}
+
+// One load of a query row: streaming (evict first) where each query has its
+// own row, the read-only path where every query shares it.  Volatile asm: the
+// compiler may hoist the header intrinsics (__ldcs, __ldg: asm that is not
+// volatile) above the branch that guards them, and a thread past the last
+// edge (or an empty channel, whose pointer may be null) would then read off
+// the end of its row.
+__device__ __forceinline__ float4 ld_row4(const float* p, bool own) {
+  float4 r;
+  if (own)
+    asm volatile("ld.global.cs.v4.f32 {%0,%1,%2,%3}, [%4];"
+                 : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w) : "l"(p));
+  else
+    asm volatile("ld.global.nc.v4.f32 {%0,%1,%2,%3}, [%4];"
+                 : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w) : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ float ld_row(const float* p, bool own) {
+  float r;
+  if (own)
+    asm volatile("ld.global.cs.f32 %0, [%1];" : "=f"(r) : "l"(p));
+  else
+    asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(r) : "l"(p));
+  return r;
+}
+
+// K consecutive edges of one query row (m and alive), as 16-byte loads where
+// the rows are aligned (kVec) and the thread's edges are all real (rem, the
+// edges left from the first to the tile's end, >= K), else as scalars; edges
+// past rem read as dead.  rem is compared as it is: with the count clamped
+// to [0, K] and compared with K, nvcc 12 for sm_90a branched on the predicate
+// of a fused min/max (VIMNMX.RELU) and took the 16-byte loads for the
+// threads with fewer than K edges, and the scalar ones for full threads (an
+// empty, null channel then faulted).
+template <int K, bool kVec>
+__device__ __forceinline__ void load_edges(const float* m_row, const float* a_row, bool m_own,
+                                           bool a_own, int rem, float (&m)[K], float (&a)[K]) {
+  if (kVec && rem >= K) {
+#pragma unroll
+    for (int j = 0; j < K / 4; ++j) {
+      const float4 x = ld_row4(m_row + 4 * j, m_own);
+      const float4 y = ld_row4(a_row + 4 * j, a_own);
+      m[4 * j] = x.x; m[4 * j + 1] = x.y; m[4 * j + 2] = x.z; m[4 * j + 3] = x.w;
+      a[4 * j] = y.x; a[4 * j + 1] = y.y; a[4 * j + 2] = y.z; a[4 * j + 3] = y.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      m[i] = 0.0f;
+      a[i] = 0.0f;
+      if (i < rem) {
+        m[i] = ld_row(m_row + i, m_own);
+        a[i] = ld_row(a_row + i, a_own);
+      }
+    }
+  }
+}
+
+// First kernel: tile_lo[t] = the first destination whose run starts at or
+// after edge t * tile (t = 0 .. n_tiles; the last is V), one warp a tile, and
+// neutral into every destination whose run crosses the tile's first edge:
+// the main kernel combines those with atomics.
+__global__ void __launch_bounds__(kExtThreads)
+extremum_seed_kernel(const int* __restrict__ ptr, int V, int E, int Q, int n_tiles, float neutral,
+                     int* __restrict__ tile_lo, float* __restrict__ out) {
+  const int t = blockIdx.x * kExtWarps + threadIdx.x / kWarp;
+  if (t > n_tiles) return;  // a whole warp leaves: t is the warp's
+  const long long b = (long long)t * kExtTile;
+  const int v = warp_lower_bound(ptr, V, b);
+  const int lane = threadIdx.x % kWarp;
+  if (lane == 0) tile_lo[t] = v;
+  // the run holding edge b began before it: destination v - 1 (ptr[0] = 0)
+  if (b > 0 && b < E && __ldg(ptr + v) > b)
+    for (int q = lane; q < Q; q += kWarp) out[(long long)q * V + v - 1] = neutral;
+}
+
+template <bool kVec, bool kMin>
+__global__ void __launch_bounds__(kExtThreads)
+extremum_kernel(const float* __restrict__ m_e, long long mq, const float* __restrict__ alive,
+                long long aq, const int* __restrict__ ptr, const int* __restrict__ tile_lo,
+                int V, int E, int Q, float neutral, float* __restrict__ out) {
+  constexpr int K = kExtEdges, T = kExtTile;
+  __shared__ int head_v[T];               // destination whose run starts at tile edge i, or -1
+  __shared__ int s_hp[kExtWarps];         // each warp's last run start
+  __shared__ float s_val[2][kExtWarps];   // each warp's segmented total (by query parity)
+  __shared__ int s_head[2][kExtWarps];    // ... and whether a run starts in the warp
+  __shared__ int s_in;                    // the run that crosses into the tile, or -1
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int b0 = blockIdx.x * T;          // the wrapper keeps E + T below 2^31
+  const int b1 = min(E, b0 + T);
+  const int i0 = tid * K;                 // the thread's first edge, in the tile
+  const int e0 = b0 + i0;
+  const int rem = b1 - e0;                // edges from its first to the tile's end
+  const int nv = min(K, rem);             // its real edges (none when <= 0)
+  const bool m_own = mq != 0, a_own = aq != 0;
+  float m[K], a[K];
+  load_edges<K, kVec>(m_e + e0, alive + e0, m_own, a_own, rem, m, a);  // query 0, in flight
+
+  // ---- the tile's destinations, once for every query
+  const int v_lo = __ldg(tile_lo + blockIdx.x), v_hi = __ldg(tile_lo + blockIdx.x + 1);
+  for (int i = tid; i < T; i += kExtThreads) head_v[i] = -1;
+  if (tid == 0) s_in = b0 < E && __ldg(ptr + v_lo) > b0 ? v_lo - 1 : -1;
+  __syncthreads();
+  for (int v = v_lo + tid; v < v_hi; v += kExtThreads) {
+    const int s = __ldg(ptr + v), e = __ldg(ptr + v + 1);
+    if (s < e)
+      head_v[s - b0] = v;
+    else
+      for (int q = 0; q < Q; ++q) out[(long long)q * V + v] = neutral;
+  }
+  __syncthreads();
+  unsigned heads = 0;                     // bit i: a run starts at the thread's edge i
+  int hv[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    hv[i] = i < nv ? head_v[i0 + i] : -1;
+    if (hv[i] >= 0) heads |= 1u << i;
+  }
+  // the start of the run the thread's first edge continues: an exclusive
+  // max-scan of each thread's last run start over the block
+  int hp = heads ? i0 + 31 - __clz(heads) : -1;
+#pragma unroll
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, hp, off);
+    if (lane >= off) hp = max(hp, o);
+  }
+  if (lane == kWarp - 1) s_hp[warp] = hp;
+  __syncthreads();
+  hp = __shfl_up_sync(kFull, hp, 1);
+  if (lane == 0) hp = -1;
+  for (int w = 0; w < warp; ++w) hp = max(hp, s_hp[w]);
+  // the runs that end at the thread's edges, their destinations, and which
+  // of them cross the tile's first or last edge (bit i of cross)
+  int dst[K];
+  unsigned cross = 0;
+  {
+    int cur = hp >= 0 ? head_v[hp] : s_in;
+    bool cur_in = hp < 0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (heads >> i & 1u) {
+        cur = hv[i];
+        cur_in = false;
+      }
+      dst[i] = -1;
+      if (i < nv) {
+        const bool tile_end = e0 + i + 1 == b1;
+        const bool ends = i + 1 < nv ? (heads >> (i + 1) & 1u) != 0
+                                     : tile_end || head_v[i0 + i + 1] >= 0;
+        if (ends && cur >= 0) {
+          dst[i] = cur;
+          if (cur_in || (tile_end && b1 < E && __ldg(ptr + cur + 1) > b1)) cross |= 1u << i;
+        }
+      }
+    }
+  }
+
+  // ---- the queries
+  for (int q = 0; q < Q; ++q) {
+    float mn[K], an[K];
+    if (q + 1 < Q)
+      load_edges<K, kVec>(m_e + (q + 1) * mq + e0, alive + (q + 1) * aq + e0, m_own, a_own, rem,
+                          mn, an);
+    float g[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) g[i] = a[i] > 0.0f ? m[i] : neutral;
+    // the thread's part of its last run (all of it when no run starts here)
+    float v = neutral;
+#pragma unroll
+    for (int i = 0; i < K; ++i) v = heads >> i & 1u ? g[i] : fold2<kMin>(v, g[i]);
+    // segmented inclusive scan over the warp: (head, v) after (head', v') is
+    // (head | head', head ? v : fold(v', v))
+    int hd = heads != 0;
+#pragma unroll
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const float vo = __shfl_up_sync(kFull, v, off);
+      const int ho = __shfl_up_sync(kFull, hd, off);
+      if (lane >= off) {
+        if (!hd) v = fold2<kMin>(vo, v);
+        hd |= ho;
+      }
+    }
+    const int buf = q & 1;                // two buffers: one barrier a query
+    if (lane == kWarp - 1) {
+      s_val[buf][warp] = v;
+      s_head[buf][warp] = hd;
+    }
+    __syncthreads();
+    float c = neutral;                    // the run in progress where the thread starts
+    for (int w = 0; w < warp; ++w)
+      c = s_head[buf][w] ? s_val[buf][w] : fold2<kMin>(c, s_val[buf][w]);
+    const float ve = __shfl_up_sync(kFull, v, 1);
+    const int he = __shfl_up_sync(kFull, hd, 1);
+    if (lane > 0) c = he ? ve : fold2<kMin>(c, ve);
+    float* orow = out + (long long)q * V;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      c = heads >> i & 1u ? g[i] : fold2<kMin>(c, g[i]);
+      if (dst[i] >= 0) {
+        if (cross >> i & 1u)
+          atomic_fold<kMin>(orow + dst[i], c);
+        else
+          orow[dst[i]] = c;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      m[i] = mn[i];
+      a[i] = an[i];
+    }
+  }
+}
+
+template <bool kVec>
+void launch_extremum(const float* m_e, long long mq, const float* alive, long long aq,
+                     const int* ptr, const int* tile_lo, int V, int E, int Q, float neutral,
+                     bool is_min, float* out, int n_tiles, cudaStream_t st) {
+  if (is_min)
+    extremum_kernel<kVec, true><<<n_tiles, kExtThreads, 0, st>>>(m_e, mq, alive, aq, ptr, tile_lo,
+                                                                  V, E, Q, neutral, out);
+  else
+    extremum_kernel<kVec, false><<<n_tiles, kExtThreads, 0, st>>>(m_e, mq, alive, aq, ptr, tile_lo,
+                                                                   V, E, Q, neutral, out);
 }
 
 int log2_exact(int x) {  // log2 of a power of two, else -1
@@ -661,13 +956,25 @@ int hop_scatter_cols(const float* contrib, long long cq, int C, const int* ptr, 
                                          (cudaStream_t)stream);
 }
 
-// B4.  m_e, alive [Q, E] (q-strides), ptr [V+1] -> out [Q, V].
+// B4.  m_e, alive [Q, E] (q-strides), ptr [V+1] (ptr[0] = 0, ptr[V] = E)
+// -> out [Q, V]; vec 4 where the rows are 16-byte aligned, else 1; tile_lo
+// scratch of n_tile_lo ints, at least E / kExtTile + 2 (else
+// cudaErrorInvalidValue, and nothing is launched: the caller sized it with
+// its own tile size).  Two launches: the seed kernel, then the tiles.
 int hop_scatter_extremum(const float* m_e, long long mq, const float* alive, long long aq,
-                         const int* ptr, int V, int Q, float neutral, int op_is_min,
-                         float* out, void* stream) {
-  dim3 block(kWarp, kWarpsPerBlock), grid((V + kWarpsPerBlock - 1) / kWarpsPerBlock, Q);
-  extremum_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(m_e, mq, alive, aq, ptr, V,
-                                                            neutral, op_is_min != 0, out);
+                         const int* ptr, int V, int E, int Q, int vec, float neutral,
+                         int op_is_min, int* tile_lo, int n_tile_lo, float* out, void* stream) {
+  const int n_tiles = E / kExtTile + 1;  // the last tile also owns the runs that start at E
+  if ((vec != 1 && vec != 4) || n_tile_lo < n_tiles + 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  extremum_seed_kernel<<<(n_tiles + kExtWarps) / kExtWarps, kExtThreads, 0, st>>>(
+      ptr, V, E, Q, n_tiles, neutral, tile_lo, out);
+  if (vec == 4)
+    launch_extremum<true>(m_e, mq, alive, aq, ptr, tile_lo, V, E, Q, neutral, op_is_min != 0, out,
+                          n_tiles, st);
+  else
+    launch_extremum<false>(m_e, mq, alive, aq, ptr, tile_lo, V, E, Q, neutral, op_is_min != 0, out,
+                           n_tiles, st);
   return (int)cudaGetLastError();
 }
 

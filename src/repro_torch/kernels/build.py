@@ -37,7 +37,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "hop_fused_interval": (_P, _L, _I, _I, _P, _P, _L, _P, _L, _P, _L, _P,
                                _I, _I, _P, _L, _F, _I, _P, _P, _P),
         "hop_scatter_cols": (_P, _L, _I, _P, _I, _I, _I, _I, _P, _P),
-        "hop_scatter_extremum": (_P, _L, _P, _L, _P, _I, _I, _F, _I, _P, _P),
+        "hop_scatter_extremum": (_P, _L, _P, _L, _P, _I, _I, _I, _I, _F, _I, _P, _I, _P,
+                                 _P),
     },
     "flash_attention": {
         "flash_attention_fwd": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L, _L,

@@ -33,10 +33,12 @@ global arrival CSR.
 A wrapper given CPU tensors runs its plain version (``*_plain``); given CUDA
 tensors it launches its kernel or raises.  ``LAUNCHES`` counts kernel
 launches by wrapper name.  The sources say which TPU kernel each replaces and
-what bounds it on the card.  B1's and B3's launch choices are pure functions
-of the shapes and alignments, made on the host without a device sync:
-``cols_vector_width`` / ``vector_width`` (columns a lane loads) and
-``lane_group`` (edge slots a destination, from ``common``, which B5 shares).
+what bounds it on the card.  The launch choices are pure functions of the
+shapes and alignments, made on the host without a device sync: for B1 and
+B3 ``cols_vector_width`` / ``vector_width`` (columns a lane loads) and
+``lane_group`` (edge slots a destination, from ``common``, which B5 shares);
+for B4 ``vector_width`` (16-byte loads of the query rows) and
+``extremum_tiles`` (its tiles of ``EXT_TILE`` edges).
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ LAUNCHES = {"fused_hop_cols": 0, "fused_hop_interval": 0, "scatter_cols": 0,
             "scatter_extremum": 0}
 SECTOR_FLOATS = 8   # floats in a 32-byte sector
 VEC = 4             # floats in a float4
+EXT_TILE = 1024     # B4: edges a tile; the C side refuses a scratch too short for its kExtTile
 
 
 def reset_launches() -> None:
@@ -252,6 +255,14 @@ def cols_vector_width(C: int, extremum: bool, *rows: Tuple[torch.Tensor, int]) -
     return vector_width(C, *rows)
 
 
+def extremum_tiles(E: int) -> int:
+    """B4's tiles over E edges: E // EXT_TILE + 1, so that the last tile,
+    which may hold no edge, also owns the destinations whose runs start at E
+    (tile t owns every destination v with t * EXT_TILE <= ptr[v] < (t + 1) *
+    EXT_TILE)."""
+    return E // EXT_TILE + 1
+
+
 def _source_table(state, sq, mch):
     """The state (query stride ``sq``) and extremum channel as B1 reads them:
     (table, query stride, row stride, channel or None, its query stride, its
@@ -373,7 +384,10 @@ def scatter_cols(contrib, ptr) -> torch.Tensor:
 
 def scatter_extremum(m_e, alive, ptr, neutral: float, op_is_min: bool) -> torch.Tensor:
     """Segment min/max of a gated per-edge channel; see
-    ``scatter_extremum_plain``."""
+    ``scatter_extremum_plain``.  Two kernel launches a call: one that finds
+    each tile's first destination (into a scratch of ``extremum_tiles(E) + 1``
+    ints) and seeds the runs that cross a tile's edge with ``neutral``, then
+    the tiles."""
     if not m_e.is_cuda:
         return scatter_extremum_plain(m_e, alive, ptr, neutral, op_is_min)
     dev = m_e.device
@@ -382,13 +396,17 @@ def scatter_extremum(m_e, alive, ptr, neutral: float, op_is_min: bool) -> torch.
     _check_index(ptr, "ptr", dev)
     _check(m_e, "m_e", torch.float32, (Qn, E), dev)
     _check(alive, "alive", torch.float32, (Qn, E), dev)
+    if E + EXT_TILE >= 2 ** 31:
+        raise ValueError(f"scatter_extremum takes fewer than 2^31 edges, got {E}")
     mq, aq = query_stride(m_e, "m_e"), query_stride(alive, "alive")
     out = torch.empty((Qn, V), dtype=torch.float32, device=dev)
     if V and Qn:
-        lib = build.load()
-        err = lib.hop_scatter_extremum(m_e.data_ptr(), mq, alive.data_ptr(), aq,
-                                       ptr.data_ptr(), V, Qn, float(neutral),
-                                       int(op_is_min), out.data_ptr(), _stream(dev))
+        tile_lo = torch.empty(extremum_tiles(E) + 1, dtype=torch.int32, device=dev)
+        vec = vector_width(VEC, (m_e, mq), (alive, aq))
+        err = build.load().hop_scatter_extremum(
+            m_e.data_ptr(), mq, alive.data_ptr(), aq, ptr.data_ptr(), V, E, Qn, vec,
+            float(neutral), int(op_is_min), tile_lo.data_ptr(), tile_lo.numel(),
+            out.data_ptr(), _stream(dev))
         build.check(err, "hop_scatter_extremum")
         LAUNCHES["scatter_extremum"] += 1
     return out

@@ -5,7 +5,8 @@ against the JAX package's Pallas kernels.
   power of two dividing 32 / (lanes an edge takes) and monotone in the mean
   degree E / V; ``vector_width`` takes float4 lanes only on aligned rows,
   and ``cols_vector_width`` not on B1's packed extremum table;
-  ``query_stride`` reads a packed, broadcast or single query axis.
+  ``query_stride`` reads a packed, broadcast or single query axis;
+  ``extremum_tiles`` gives B4 a tile for every edge position 0 .. E.
 * ``fused_hop_cols_plain`` (B1) and ``fused_hop_interval_plain`` (B2) equal
   ``fused_hop_cols_pallas`` and ``fused_hop_interval_pallas`` in interpret
   mode (``np.array_equal``) on the skewed CSRs of ``hop_cases``: a 238-degree
@@ -13,9 +14,16 @@ against the JAX package's Pallas kernels.
   queries or per query, with and without the MIN/MAX channel.  The reference
   kernels take one query at a time over the slot layout of
   ``build_hop_layout``; counts are small integers, exact in any order.
-  ``tests/test_torch_kernels.py`` holds the CUDA kernels to the plain
-  versions on the same shapes.
+* ``scatter_extremum_plain`` (B4) equals ``scatter_extremum_pallas`` in
+  interpret mode on the same CSRs, also with a hub longer than one of the
+  CUDA kernel's tiles, dead edges and +-inf among the values, Q = 3, MIN and
+  MAX.
+``tests/test_torch_kernels.py`` holds the CUDA kernels to the plain versions
+on the same shapes.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,7 +74,7 @@ def test_lane_group_at_the_main_path_degree():
 
 def test_vector_width():
     """float4 lanes where C is a multiple of 4 and every table starts and
-    strides on 16 bytes."""
+    strides on 16 bytes (B4 too: its query rows)."""
     x = torch.zeros(2, 10, 16)
     assert HK.vector_width(16, (x, 160)) == 4
     assert HK.vector_width(16, (x, 0)) == 4
@@ -74,6 +82,10 @@ def test_vector_width():
     assert HK.vector_width(24, (x, 240)) == 4
     assert HK.vector_width(16, (x.view(-1)[1:].view(1, -1)[:, :16], 16)) == 1   # unaligned
     assert HK.vector_width(16, (x, 17)) == 1
+    # B4's [Q, E] tables (C = 4: a thread's 4 edges): rows off 16 bytes when
+    # E % 4 != 0, every row on them when the channel is shared (stride 0)
+    assert HK.vector_width(4, (torch.zeros(3, 1023), 1023)) == 1
+    assert HK.vector_width(4, (torch.zeros(1, 1023).expand(3, -1), 0)) == 4
 
 
 def test_cols_vector_width():
@@ -86,6 +98,25 @@ def test_cols_vector_width():
         assert HK.cols_vector_width(C, True, *rows) == (1 if C < HK.SECTOR_FLOATS else 4)
     x = torch.zeros(2, 10, 3)
     assert HK.cols_vector_width(3, False, (x, 30)) == 1
+
+
+def test_extremum_tiles():
+    """B4's tiles cover every edge position 0 .. E, so each destination's run
+    start (ptr[v] <= E) lies in exactly one tile: E // tile + 1 tiles, the
+    last of which holds no edge when the tile divides E.  The main path's
+    delivery shapes: 2,781,395 and 6,881,632 edges.  The tile is the CUDA
+    source's (kExtThreads * kExtEdges), which sizes the scratch the wrapper
+    allocates from it."""
+    tile = HK.EXT_TILE
+    assert tile == 1024
+    src = (Path(HK.__file__).resolve().parents[2] / "csrc" / "hop_scatter.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (kExt\w+) = (\d+);", src)}
+    assert const["kExtThreads"] * const["kExtEdges"] == tile
+    for E in (0, 1, tile - 1, tile, tile + 1, 5 * tile, 2_781_395, 6_881_632):
+        n = HK.extremum_tiles(E)
+        assert (n - 1) * tile <= E < n * tile, (E, n)
+    assert HK.extremum_tiles(2_781_395) == 2717
+    assert HK.extremum_tiles(6_881_632) == 6721
 
 
 def test_query_stride():
@@ -181,3 +212,30 @@ def test_fused_hop_interval_plain_equals_pallas(B, shared_w, ext):
         assert np.array_equal(got[q].reshape(V, NC).numpy(), np.asarray(want)[:V]), q
         if ext:
             assert np.array_equal(got_m[q].numpy(), np.asarray(want_m)[:V]), q
+
+
+@pytest.mark.parametrize("ext", ["min", "max"])
+@pytest.mark.parametrize("hub", ["deg238", "past_a_tile"])
+def test_scatter_extremum_plain_equals_pallas(hub, ext):
+    tile = HK.EXT_TILE
+    rng = np.random.default_rng(41 + (hub == "past_a_tile"))
+    ptr = hop_cases.skewed_ptr(rng, V, hub=hop_cases.HUB if hub == "deg238" else tile + 300)
+    E = int(ptr[-1])
+    m = rng.integers(1, 500, size=(Q, E)).astype(np.float32)
+    m[rng.random((Q, E)) < 0.05] = np.inf
+    m[rng.random((Q, E)) < 0.05] = -np.inf
+    alive = (rng.random((Q, E)) < 0.5).astype(np.float32)
+    kw, _ = _extremum(ext)
+    t = torch.from_numpy
+    got = HK.scatter_extremum_plain(t(m), t(alive), t(ptr), **kw)
+    lay = _layout(ptr)
+    for q in range(Q):
+        want = JHK.scatter_extremum_pallas(
+            _slots(lay, m[q], kw["neutral"]), _slots(lay, alive[q], 0.0), lay.local_dst,
+            lay.block_v, interpret=True, **kw)
+        assert np.array_equal(got[q].numpy(), np.asarray(want)[:V]), q
+    # the shapes reach empty runs and all-dead runs, finite values and both infinities
+    assert bool((got == kw["neutral"]).any())
+    assert bool(torch.isfinite(got).any())
+    assert bool((got == -kw["neutral"]).any())
+    assert int(np.diff(ptr).max()) > (tile if hub == "past_a_tile" else 200)

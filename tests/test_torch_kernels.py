@@ -13,6 +13,11 @@ sums above 2^24 over at most 8 edges a destination, held to rtol 1e-6 (each
 order's rounding error is at most 7 units of 2^-24 of the sum); their worker
 form (the partitioned executor's one launch over every worker's CSR) on
 ``hop_cases.worker_shards``, with a pad-heavy variant whose pads carry NaN.
+Gated min/max (B4): ``torch.equal`` to the plain version around its tiles
+of 1,024 edges (runs across one tile edge or several, runs ending on one,
+a destination over several tiles, all runs empty, E = 0), on zipf and
+skewed CSRs with +-inf, on a channel shared by the queries and on an
+unaligned view (scalar loads).
 Attention: atol = rtol = 2e-5 in float32 (the tolerance of
 ``tests/test_kernels.py``'s sweep); in bf16 atol 1e-3 and rtol 2^-7, one
 bf16 rounding of the output, tighter than that sweep's 2e-2, since kernel and
@@ -404,18 +409,81 @@ def test_scatter_cols_workers(dev, C, pad_heavy):
     assert torch.equal(out, HK.scatter_cols_plain(contrib, sh["lay"].ptr))
 
 
+def _extremum_ptr(case, rng):
+    """B4's arrival pointers, cut around its tile of T edges: runs that cross
+    one tile edge or several, runs that end exactly on one, all runs empty,
+    E = 0, one destination over several tiles, and zipf CSRs."""
+    T = HK.EXT_TILE
+    if case in ("zipf", "strided", "unaligned"):
+        return _csr(rng, 900)
+    if case == "row_shifts":       # E = 1 mod 4: five query rows start 0, 1, 2, 3, 0 floats
+        ptr = _csr(rng, 3000).astype(np.int64)   # past a 16-byte boundary (scalar loads)
+        ptr[-1] += (1 - ptr[-1]) % 4
+        return ptr.astype(np.int32)
+    if case == "skewed":
+        return hop_cases.skewed_ptr(rng, 200, hub=T + 300)
+    deg = {"cross_one": [T - 5, 10] + [1] * 300,           # run 1 holds edge T
+           "cross_several": [7, 3 * T + 11, 2] + [0] * 20 + [T],
+           "tile_edge": [T, 0, T, 5, T - 5, 0, 3],         # runs end at T, 2T, 3T
+           "all_empty": [0] * 3000,
+           "E0": [0],
+           "one_dest": [3 * T + 17]}[case]
+    ptr = np.zeros(len(deg) + 1, np.int32)
+    np.cumsum(deg, out=ptr[1:])
+    return ptr
+
+
+@pytest.mark.parametrize("case", ["zipf", "skewed", "cross_one", "cross_several", "tile_edge",
+                                  "all_empty", "E0", "one_dest", "strided", "unaligned",
+                                  "row_shifts"])
 @pytest.mark.parametrize("op_is_min", [True, False])
-def test_scatter_extremum(dev, op_is_min):
+def test_scatter_extremum(dev, op_is_min, case):
+    """B4 equals its plain version: dead edges, +-inf among the values
+    (``skewed``), a channel shared by every query (query stride 0), and the
+    scalar loads on query rows that start off 16 bytes (``row_shifts``, and
+    every case with E % 4 != 0) and on an unaligned view."""
     rng = np.random.default_rng(7)
-    ptr = _csr(rng, 900)
-    E = int(ptr[-1])
+    ptr = _extremum_ptr(case, rng)
+    E, Q = int(ptr[-1]), 5 if case == "row_shifts" else 3
     t = lambda a: torch.from_numpy(a).to(dev)
-    m = t(rng.integers(1, 500, size=(3, E)).astype(np.float32))
-    alive = t((rng.random((3, E)) < 0.5).astype(np.float32))
+    m = rng.integers(1, 500, size=(Q, E)).astype(np.float32)
+    if case == "skewed":
+        m[rng.random((Q, E)) < 0.05] = np.inf
+        m[rng.random((Q, E)) < 0.05] = -np.inf
+    m = t(m)
+    alive = t((rng.random((Q, E)) < 0.5).astype(np.float32))
+    if case == "strided":
+        m = m[:1].expand(Q, -1)
+    if case == "unaligned":
+        flat = torch.empty(Q * E + 1, device=dev)
+        m = flat[1:].view(Q, E).copy_(m)
+        assert HK.vector_width(HK.VEC, (m, HK.query_stride(m, "m_e"))) == 1
     neutral = float("inf") if op_is_min else float("-inf")
+    n0 = HK.LAUNCHES["scatter_extremum"]
     out = HK.scatter_extremum(m, alive, t(ptr), neutral, op_is_min)
     torch.cuda.synchronize()
+    assert HK.LAUNCHES["scatter_extremum"] == n0 + 1
     assert torch.equal(out, HK.scatter_extremum_plain(m, alive, t(ptr), neutral, op_is_min))
+
+
+def test_scatter_extremum_short_scratch(dev):
+    """B4's C entry point refuses a tile scratch shorter than its own tile
+    size needs (E // kExtTile + 2 ints) and launches nothing, so a Python
+    tile size that disagrees with the C one cannot write past the scratch."""
+    from repro_torch.kernels import build
+
+    E, V, Q = 5 * HK.EXT_TILE + 3, 40, 2
+    ptr = torch.linspace(0, E, V + 1, device=dev).round().to(torch.int32)
+    m = torch.ones(Q, E, device=dev)
+    out = torch.full((Q, V), 7.0, device=dev)
+    tile_lo = torch.zeros(HK.extremum_tiles(E) + 1, dtype=torch.int32, device=dev)
+    for n in (tile_lo.numel() - 1, 0):
+        err = build.load().hop_scatter_extremum(
+            m.data_ptr(), E, m.data_ptr(), E, ptr.data_ptr(), V, E, Q, 1, float("inf"), 1,
+            tile_lo.data_ptr(), n, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        assert err != 0
+    assert bool((out == 7.0).all()) and not bool(tile_lo.any())
 
 
 def test_wrappers_refuse_bad_operands(dev):
