@@ -92,6 +92,42 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                --serve --verify`` must exit 0 and print ``verification vs
                oracle: OK``, and so must the same command with ``--engine
                partitioned``.
+  6c. live     live graphs on the main graph (``graphdata/ingest.py``,
+               ``serving/epochs.py``, the scheduler's ``pin_epoch`` and its
+               base+delta dispatch): ``log_from_graph`` holds out a tenth of
+               the edges (seed SEED), an ``EpochManager`` (compact_every 8,
+               max_delta_frac 0.5) seals epoch 0 and ingests the held edges
+               back in LIVE_EPOCHS epochs, all delta-pure, and a last
+               ``advance(compact=True)`` compacts.  At each epoch the serve
+               phase's workload is drained in bucket and static mode (Q2 and
+               Q2-min also in interval mode at epoch 1) on one pinned
+               scheduler: a first flush, a steady flush (``timed_flush``)
+               whose B1/B2/B3 launches must equal one per hop of each
+               dispatch, and a check flush holding every group to
+               impl='torch' on the epoch's merged graph.  It fails unless
+               the ETR-free groups, and only they, run on the delta path at
+               epochs 1-3, their executables hit the cache at epochs 2 and
+               3, no cache entry is invalidated before the compaction and
+               some are at it, the delta groups equal a scheduler built
+               fresh on the merged graph (epoch 1), a drain after an ingest
+               and before the advance equals the one before the ingest, the
+               partitioned engine (W = LIVE_WORKERS, static) equals the auto
+               drain at epochs 0 and 1, epoch 1's partition tables come
+               through the partition hint, and every answer after the
+               compaction equals the serve phase's on the original graph.
+               The flight recorder and a telemetry buffer ride epoch 0's
+               first bucket drain: the telemetry replayed from the trace
+               (``obs/audit.py``) must equal the live buffer's, and
+               ``scripts/torch_trace_report.py --audit`` must render the
+               trace.  Then ``python -m repro_torch.launch.query --persons
+               1000 --live --wal build/live.wal --holdout 64 --epochs 3``
+               runs fresh and again on the same WAL, which must recover 4
+               sealed epochs and pin the first run's last fingerprint.
+               Lines: ``live: set-up``, ``audit:``, ``live: epoch k`` (events,
+               materialize and seal s, fingerprints, delta edges and
+               capacity, flush wall ms and p50/p99, delta/merged dispatches,
+               cache, peak/resident GiB, B1/B2/B3 launches), the partitioned
+               drains and the CLI.
   7. lm        gemma3-4b at full width (34 layers, 3.88 B parameters in bf16,
                random weights from SEED, made on the card): first its SMOKE
                variant on the card against the port on the CPU; then the
@@ -1340,38 +1376,47 @@ def timed_flush(sched, wl, what: str) -> dict:
     return out
 
 
-def check_groups(graph, sched, wl, counts, what: str) -> dict:
+def check_groups(graph, sched, wl, counts, what: str, keep: list | None = None,
+                 ref_chunk: int | None = None) -> dict:
     """Serve ``wl`` once more with the outputs kept, and hold every group's
     answer against ``execute_batch_out`` at the group's split on the plain
     lowering, on the card (bit-equal below 2^24, rtol 1e-6 at or above,
-    counted); the counts must equal the timed flush's."""
+    counted); the counts must equal the timed flush's.  ``keep`` receives
+    the served results; ``ref_chunk`` runs the plain lowering on that many
+    of a group's queries at a time (its per-edge state is Q times the
+    graph's)."""
     from repro_torch.core import engine as E
 
     sched.keep_outputs = True
     res = sched.run(wl, warm=True)
     sched.keep_outputs = False
     check_served(res, what)
+    if keep is not None:
+        keep.extend(res)
     if [r.count for r in res] != counts:
         raise AssertionError(f"serve {what}: counts moved between two flushes")
     errs = dict(max_abs_err=0.0, n_ge_2_24=0, n_groups=0)
     for d in sched.last_dispatches:
-        qs = [wl[i].qry for i in d.indices]
-        ref = E.execute_batch_out(graph, qs, split=d.split, mode=sched._mode_for(qs[0]),
-                                  n_buckets=sched.n_buckets, sliced=d.engine == "sliced",
-                                  impl="torch", device="cuda")
-        for f in ("total", "per_vertex", "minmax"):
-            want = getattr(ref, f)
-            got = [getattr(res[i], f) for i in d.indices]
-            if want is None and all(g is None for g in got):
-                continue
-            if want is None or any(g is None for g in got):
-                raise AssertionError(f"serve {what} {qs[0]}: {f} missing on one side")
-            got = torch.from_numpy(np.stack(got)).cuda()
-            e = compare(got, want, f"serve {what} {wl[d.indices[0]].template} {f}")
-            errs["max_abs_err"] = max(errs["max_abs_err"], e["max_abs_err"])
-            errs["n_ge_2_24"] += e["n_ge_2_24"]
-            del got
-        del ref
+        step = ref_chunk or len(d.indices)
+        for lo in range(0, len(d.indices), step):
+            idx = d.indices[lo:lo + step]
+            qs = [wl[i].qry for i in idx]
+            ref = E.execute_batch_out(graph, qs, split=d.split, mode=sched._mode_for(qs[0]),
+                                      n_buckets=sched.n_buckets, sliced=d.engine == "sliced",
+                                      impl="torch", device="cuda")
+            for f in ("total", "per_vertex", "minmax"):
+                want = getattr(ref, f)
+                got = [getattr(res[i], f) for i in idx]
+                if want is None and all(g is None for g in got):
+                    continue
+                if want is None or any(g is None for g in got):
+                    raise AssertionError(f"serve {what} {qs[0]}: {f} missing on one side")
+                got = torch.from_numpy(np.stack(got)).cuda()
+                e = compare(got, want, f"serve {what} {wl[idx[0]].template} {f}")
+                errs["max_abs_err"] = max(errs["max_abs_err"], e["max_abs_err"])
+                errs["n_ge_2_24"] += e["n_ge_2_24"]
+                del got
+            del ref
         errs["n_groups"] += 1
     free_memory()
     log(f"serve: {what}: {errs['n_groups']} groups equal impl='torch' at their splits "
@@ -1410,24 +1455,32 @@ def check_drains(sched, ref_sched, wl, what: str) -> dict:
     return errs
 
 
-def phase_serve(graph) -> dict:
+def serve_workload(graph) -> list:
+    """The serve phase's workload: Q1-Q8 (N_BATCH instances each, seed
+    SEED) and the MIN variants of the ETR-free template."""
+    from repro_torch.graphdata.queries import make_workload, to_minmax
+
+    wl = make_workload(graph, n_per_template=N_BATCH, seed=SEED)
+    return wl + [to_minmax(i, graph) for i in wl
+                 if all(e.etr_op == -1 for e in i.qry.e_preds)]
+
+
+def phase_serve(graph, served: dict) -> dict:
     """The query server at full size on the main graph: the bucket drain
     ``--serve`` runs (``GraniteServer.run_workload_scheduled``, flight
     recorder and metrics attached), a static drain (``BatchScheduler`` in
     static mode) with one traced flush, and the open-loop replay of
     ``--replay``, all on the kernels (``impl='cuda'``); then the CLI itself
-    on a small graph."""
+    on a small graph.  ``served`` receives the bucket and static drains'
+    answers (the live phase holds its last epoch to them)."""
     from repro_torch.core import engine as E
-    from repro_torch.graphdata.queries import make_workload, to_minmax
     from repro_torch.kernels import hop_scatter as HK
     from repro_torch.launch.query import GraniteServer
     from repro_torch.obs import MetricsRegistry, Tracer
     from repro_torch.serving import BatchScheduler, replay_workload
 
     t_phase = time.perf_counter()
-    wl = make_workload(graph, n_per_template=N_BATCH, seed=SEED)
-    wl += [to_minmax(i, graph) for i in wl
-           if all(e.etr_op == -1 for e in i.qry.e_preds)]
+    wl = serve_workload(graph)
     info = dict(n_queries=len(wl), templates=sorted({i.template for i in wl}))
     HK.reset_launches()           # counts are 0 just before the drains
 
@@ -1450,7 +1503,8 @@ def phase_serve(graph) -> dict:
     log(f"serve: bucket first flush (stats, plans, first calls) {cold_ms:.1f} ms; caches "
         f"{bucket['caches']}; {tracer.n_completed} spans recorded")
     bucket["launches"] = dict(HK.LAUNCHES)
-    bucket["check"] = check_groups(graph, sched, wl, bucket["counts"], "bucket")
+    bucket["check"] = check_groups(graph, sched, wl, bucket["counts"], "bucket",
+                                   keep=served.setdefault("bucket", []))
     del server, sched, tracer, res
     free_memory()
 
@@ -1464,7 +1518,8 @@ def phase_serve(graph) -> dict:
     static["trace"] = traced(lambda: check_served(sst.run(wl), "static traced"))
     log_trace("profile: serve static flush", static["trace"])
     static["launches"] = {k: HK.LAUNCHES[k] - mark[k] for k in HK.LAUNCHES}
-    static["check"] = check_groups(graph, sst, wl, static["counts"], "static")
+    static["check"] = check_groups(graph, sst, wl, static["counts"], "static",
+                                   keep=served.setdefault("static", []))
     del sst
     free_memory()
 
@@ -1527,6 +1582,401 @@ def phase_serve(graph) -> dict:
     info.update(bucket=bucket, static=static, partitioned=partitioned, replay=replay,
                 launches=launches, cli=clis, wall_s=time.perf_counter() - t_phase)
     log(f"serve: phase {info['wall_s']:.1f}s")
+    return info
+
+
+# =========================================================================
+# live graphs: the event log, epochs and base+delta serving on the main graph
+# =========================================================================
+LIVE_EPOCHS = 3               # the CLI's --epochs
+LIVE_WORKERS = 4              # the partition-hint drains' workers
+LIVE_WAL = ROOT / "build" / "live.wal"
+LIVE_CLI = ["--persons", "1000", "--live", "--wal", str(LIVE_WAL), "--holdout", "64",
+            "--epochs", str(LIVE_EPOCHS)]
+LIVE_TRACE = ROOT / "build" / "live_trace.jsonl"
+PLAN_WITHIN = 0.10            # the audit's plan-accuracy tolerance
+ERROR_KEYS = ("n", "mean_abs_rel_err", "p90_abs_rel_err", "tail_mean_abs_rel_err")
+
+
+def served_answers(sched, wl, what: str) -> list:
+    """Serve ``wl`` with the outputs kept: per query (total, per_vertex,
+    minmax) on the host."""
+    sched.keep_outputs = True
+    res = sched.run(wl, warm=True)
+    sched.keep_outputs = False
+    check_served(res, what)
+    return [(r.total, r.per_vertex, r.minmax) for r in res]
+
+
+def hold_answers(got: list, want: list, wl, what: str) -> dict:
+    """Hold two lists of answers query by query (``compare``: bit-equal
+    below 2^24, rtol 1e-6 at or above, counted).  An answer is a served
+    result or a (total, per_vertex, minmax) tuple."""
+    def fields(a):
+        return a if isinstance(a, tuple) else (a.total, a.per_vertex, a.minmax)
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} answers against {len(want)}")
+    errs = dict(max_abs_err=0.0, n_ge_2_24=0, n_queries=len(got))
+    for i, (a, b) in enumerate(zip(got, want)):
+        for f, x, y in zip(("total", "per_vertex", "minmax"), fields(a), fields(b)):
+            if x is None and y is None:
+                continue
+            if x is None or y is None:
+                raise AssertionError(f"{what} query {i}: {f} missing on one side")
+            e = compare(torch.from_numpy(np.asarray(x)), torch.from_numpy(np.asarray(y)),
+                        f"{what} {wl[i].template} {f}")
+            errs["max_abs_err"] = max(errs["max_abs_err"], e["max_abs_err"])
+            errs["n_ge_2_24"] += e["n_ge_2_24"]
+    return errs
+
+
+def predicted_launches(sched, wl) -> dict:
+    """Hop-kernel launches the last flush's dispatches predict: one per hop
+    of each segment, B3 on an ETR hop, else B1 (B2 in interval mode); the
+    delta's delivery launches none."""
+    out = dict.fromkeys(HOP_KERNELS, 0)
+    for d in sched.last_dispatches:
+        q = wl[d.indices[0]].qry
+        for k, v in expected_launches(q, d.split, sched._mode_for(q)).items():
+            out[k] += v
+    return out
+
+
+def launches_since(mark: dict) -> dict:
+    from repro_torch.kernels import hop_scatter as HK
+
+    return {k: HK.LAUNCHES[k] - mark[k] for k in HOP_KERNELS}
+
+
+def live_drain(sched, wl, graph, mode: int, what: str, ref_chunk: int | None = None) -> tuple:
+    """One mode's drains at a pinned epoch: a first flush (new executables
+    are built and run once untimed), a steady flush timed by
+    ``timed_flush`` whose kernel launches must equal the dispatches'
+    prediction, and the check flush (``check_groups``: every group equal to
+    impl='torch' on the epoch's merged graph).  Returns (report, the check
+    flush's results); the report's ``delta`` holds (the group is ETR-free,
+    it ran on the delta path) per steady dispatch, ``first`` (delta, the
+    executable was cached) per first dispatch."""
+    from repro_torch.kernels import hop_scatter as HK
+
+    sched.mode = mode
+    check_served(sched.run(wl, warm=True), what)
+    first = [(bool(d.delta), bool(d.exec_cached)) for d in sched.last_dispatches]
+    mark = dict(HK.LAUNCHES)
+    out = timed_flush(sched, wl, what)
+    out["launches"] = launches_since(mark)
+    pred = predicted_launches(sched, wl)
+    if out["launches"] != pred:
+        raise AssertionError(f"{what}: launches {out['launches']} != predicted {pred}")
+    out["delta"] = [(all(e.etr_op == -1 for e in wl[d.indices[0]].qry.e_preds),
+                     bool(d.delta)) for d in sched.last_dispatches]
+    out["first"] = first
+    res = []
+    out["check"] = check_groups(graph, sched, wl, out.pop("counts"), what, keep=res,
+                                ref_chunk=ref_chunk)
+    return out, res
+
+
+def delta_cost(sched, wl, mode: int) -> dict:
+    """The delta path's own cost: each delta group of the last flush timed
+    (``time_ms``: median of CUDA-event single calls) on the base+delta
+    executable and on the base graph's dense executable without the delta,
+    at the group's split.  The timing calls' launches are not counted."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import query as Q
+    from repro_torch.kernels import hop_scatter as HK
+
+    counts = dict(HK.LAUNCHES)
+    out = {}
+    for d in sched.last_dispatches:
+        if not d.delta:
+            continue
+        qs = [wl[i].qry for i in d.indices]
+        params = np.stack([Q.query_params(q) for q in qs])
+        base = E.batch_executable(sched.graph, qs[0], d.split, mode, sched.n_buckets,
+                                  sliced=False, impl="cuda")
+        delta = E.batch_executable_delta(sched.graph, qs[0], d.split, mode,
+                                         sched.n_buckets, impl="cuda")
+        dv = sched._delta
+        out[wl[d.indices[0]].template] = dict(
+            delta_ms=time_ms(lambda: delta(params, dv), iters=5),
+            base_ms=time_ms(lambda: base(params), iters=5))
+    HK.LAUNCHES.update(counts)
+    free_memory()
+    return out
+
+
+def live_audit(tracer, tb) -> dict:
+    """The cost-model audit of one traced drain: the telemetry replayed from
+    the trace must equal the live buffer's float for float; plan accuracy,
+    coefficient drift, the trace written to LIVE_TRACE and rendered by
+    ``scripts/torch_trace_report.py --audit``, which must exit 0."""
+    from repro_torch.obs import audit
+
+    live = tb.error_stats()
+    replay = audit.replay_telemetry(tracer).error_stats()
+    if any(replay[k] != live[k] for k in ERROR_KEYS) or live["n"] == 0:
+        raise AssertionError(f"live audit: replayed telemetry {replay} != live {live}")
+    plan = audit.plan_accuracy(tracer, within=PLAN_WITHIN)
+    drift = audit.coefficient_drift(tracer)
+    n_disp = len(audit.dispatch_records(tracer))
+    LIVE_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    n_spans = tracer.export_jsonl(str(LIVE_TRACE))
+    t0 = time.perf_counter()
+    rep = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_trace_report.py"),
+                          str(LIVE_TRACE), "--limit", "1", "--audit"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if rep.returncode != 0 or "cost-model audit" not in rep.stdout:
+        raise AssertionError(f"live audit: torch_trace_report.py failed (rc "
+                             f"{rep.returncode}): {rep.stderr[-1500:]}")
+    moved = {k: v["rel"] for k, v in drift.items() if v["abs_delta"] > 0}
+    out = dict(error=live, plan=plan, drift_rel=moved, n_dispatch_records=n_disp,
+               n_spans=n_spans, report_s=time.perf_counter() - t0)
+    log(f"audit: plan_accuracy frac_within={plan['frac_within']} (within "
+        f"{PLAN_WITHIN:.0%}, {plan['n_decisions']} decisions, {plan['n_queries']} queries, "
+        f"mean_ratio={plan['mean_ratio']}, worst_ratio={plan['worst_ratio']}); coefficient "
+        f"drift (rel) {json.dumps(moved)}; {n_disp} dispatch records; replayed telemetry "
+        f"equals the live buffer (n={live['n']}, mean_abs_rel_err={live['mean_abs_rel_err']}, "
+        f"p90={live['p90_abs_rel_err']}); trace of {n_spans} spans rendered by "
+        f"torch_trace_report.py --audit: rc 0")
+    return out
+
+
+def live_cli() -> dict:
+    """``python -m repro_torch.launch.query --live --wal`` fresh, then again
+    on the same WAL: the second run must recover every sealed epoch and pin
+    the first run's last fingerprint."""
+    LIVE_WAL.parent.mkdir(parents=True, exist_ok=True)
+    LIVE_WAL.unlink(missing_ok=True)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.query"] + LIVE_CLI,
+                             cwd=ROOT, capture_output=True, text=True, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        if cli.returncode != 0:
+            raise AssertionError(f"live: the CLI failed (rc {cli.returncode}): "
+                                 f"{cli.stdout[-800:]} {cli.stderr[-1500:]}")
+        runs.append(dict(seconds=time.perf_counter() - t0, stdout=cli.stdout))
+    fps = [ln.split("fp=")[1].split()[0] for ln in runs[0]["stdout"].splitlines()
+           if "fp=" in ln]
+    rec = [ln for ln in runs[1]["stdout"].splitlines() if ln.startswith("recovered ")]
+    want = f"recovered {LIVE_EPOCHS + 1} sealed epoch(s)"
+    if len(fps) != LIVE_EPOCHS + 1 or not rec or not rec[0].startswith(want) \
+            or f"pinned fp {fps[-1]}" not in rec[0]:
+        raise AssertionError(f"live: the CLI's recovery did not pin {fps[-1:]}: "
+                             f"{runs[1]['stdout'][-800:]}")
+    log(f"live: python -m repro_torch.launch.query {' '.join(LIVE_CLI)}: rc 0 "
+        f"({runs[0]['seconds']:.1f}s), last pinned fp {fps[-1]}; again on the same WAL: "
+        f"rc 0 ({runs[1]['seconds']:.1f}s), '{rec[0]}'")
+    return dict(argv=LIVE_CLI, seconds=[r["seconds"] for r in runs], fingerprints=fps,
+                recovered=rec[0])
+
+
+def phase_live(graph, served: dict) -> dict:
+    """Live graphs at full size on the main graph: ``log_from_graph`` holds
+    a tenth of the edges out of epoch 0, an ``EpochManager`` seals epoch 0
+    and ingests the held edges back in LIVE_EPOCHS epochs, and a last
+    ``advance(compact=True)`` seals the empty suffix and compacts.  At every
+    epoch one scheduler, pinned by the manager, drains the serve phase's
+    workload in bucket and static mode (Q2/Q2-min also in interval mode at
+    epoch 1), on the kernels; a partitioned scheduler drains it in static
+    mode at epochs 0 and 1 (the second through the partition hint); the
+    flight recorder and a telemetry buffer ride epoch 0's first bucket drain
+    for the cost-model audit; then the CLI serves ``--live --wal`` and
+    recovers from its WAL."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import engine_partitioned as EP
+    from repro_torch.graphdata.ingest import log_from_graph
+    from repro_torch.kernels import hop_scatter as HK
+    from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
+    from repro_torch.serving import BatchScheduler, EpochManager, TelemetryBuffer
+
+    t_phase = time.perf_counter()
+    if graph.eprops:
+        raise AssertionError("live: the graph has edge properties, which log_from_graph "
+                             "drops from held edges")
+    wl = serve_workload(graph)
+    wl_delta = [i for i in wl if all(e.etr_op == -1 for e in i.qry.e_preds)]
+    mark0 = dict(HK.LAUNCHES)
+
+    # ---- set-up: the event log and epoch 0
+    t0 = time.perf_counter()
+    elog, held = log_from_graph(graph, holdout_edges=graph.n_edges // 10, seed=SEED)
+    log_s = time.perf_counter() - t0
+    if len(held) != graph.n_edges // 10:
+        raise AssertionError(f"live: {len(held)} held edges")
+    mx, mtr = MetricsRegistry(), Tracer(capacity=1 << 16)
+    mgr = EpochManager(elog, metrics=mx, tracer=mtr)
+    t0 = time.perf_counter()
+    ep = mgr.seal()
+    seal_s = time.perf_counter() - t0
+    info = dict(setup=dict(events=len(elog), held_edges=len(held), log_from_graph_s=log_s,
+                           epoch0_s=seal_s, n_vertices=ep.graph.n_vertices,
+                           n_edges=ep.graph.n_edges), epochs=[])
+    log(f"live: set-up log_from_graph {log_s:.1f}s ({len(elog)} events, {len(held)} edges "
+        f"held out), epoch 0 {seal_s:.1f}s ({ep.graph.n_vertices} vertices, "
+        f"{ep.graph.n_edges} edges)")
+    cache = mx.counter("granite_cache_total", "serving cache events",
+                       labelnames=("cache", "event"))
+
+    def invalidations() -> float:
+        return sum(cache.value(cache=c, event="invalidation")
+                   for c in ("executable", "plan"))
+
+    sched = BatchScheduler(ep.graph, metrics=mx)
+    mgr.attach(sched)
+    psched = BatchScheduler(ep.graph, engine="partitioned", n_workers=LIVE_WORKERS,
+                            mode=E.MODE_STATIC)
+    psched.pin_epoch(ep)
+    chunks = np.array_split(np.arange(len(held)), LIVE_EPOCHS)
+    partitioned = []
+    ingest_s = 0.0
+    ex = sched.exec_cache.stats.as_dict()
+    while True:
+        t_ep = time.perf_counter()
+        mark = dict(HK.LAUNCHES)
+        final = ep.id == LIVE_EPOCHS + 1
+        live_epoch = 1 <= ep.id <= LIVE_EPOCHS
+        if live_epoch and ep.compacted:
+            raise AssertionError(f"live e{ep.id}: compacted before the last epoch")
+        row = dict(id=ep.id, events=ep.n_events, ingest_s=ingest_s, seal_s=seal_s,
+                   materialize_s=[r["t_end"] - r["t_start"] for r in mtr.records()
+                                  if r["name"] == "materialize"][-1],
+                   fingerprint=ep.fingerprint, base_fingerprint=ep.base_fingerprint,
+                   compacted=ep.compacted, delta_edges=ep.n_delta_edges,
+                   capacity=ep.delta.capacity if ep.delta is not None else 0)
+        if live_epoch and ep.delta is None:
+            raise AssertionError(f"live e{ep.id}: the window is not delta-pure")
+        if ep.id == 0:            # the audit rides epoch 0's first bucket drain
+            tracer, tb = Tracer(capacity=1 << 20), TelemetryBuffer(refit=False)
+            sched.tracer, sched.telemetry, sched.mode = tracer, tb, E.MODE_BUCKET
+            check_served(sched.run(wl, warm=True), "live audit drain")
+            sched.tracer, sched.telemetry = NULL_TRACER, None
+            info["audit"] = live_audit(tracer, tb)
+            del tracer, tb
+        res = {}
+        for m, mode in (("bucket", E.MODE_BUCKET), ("static", E.MODE_STATIC)):
+            row[m], res[m] = live_drain(sched, wl, ep.graph, mode, f"live e{ep.id} {m}")
+            # ETR-free groups, and only they, run on the delta path of a
+            # live epoch; the delta executables are cache hits after the
+            # window's first epoch
+            pairs = row[m]["delta"]
+            if any(dl != (free and live_epoch) for free, dl in pairs):
+                raise AssertionError(f"live e{ep.id} {m}: delta dispatches {pairs}")
+            if live_epoch and not any(dl for _, dl in pairs):
+                raise AssertionError(f"live e{ep.id} {m}: no delta dispatch")
+            if ep.id >= 2 and live_epoch and not all(
+                    hit for dl, hit in row[m]["first"] if dl):
+                raise AssertionError(f"live e{ep.id} {m}: a delta executable missed "
+                                     f"the cache: {row[m]['first']}")
+            row[m]["n_delta"] = sum(dl for _, dl in pairs)
+            row[m]["n_merged"] = len(pairs) - row[m]["n_delta"]
+            if live_epoch:
+                row[m]["delta_cost"] = delta_cost(sched, wl, mode)
+        if ep.id == 1:
+            # Q2/Q2-min in interval mode, and each delta group against a
+            # scheduler built fresh on the merged graph, which has no delta
+            # (the plain lowering's dense interval state [Q, 2E, 16, 17] is
+            # held one query at a time, as the main phase runs interval jobs)
+            row["interval"], _ = live_drain(sched, wl_delta, ep.graph, E.MODE_INTERVAL,
+                                            f"live e{ep.id} interval", ref_chunk=1)
+            if row["interval"]["launches"]["fused_hop_interval"] == 0:
+                raise AssertionError("live interval: B2 never launched")
+            row["fresh"] = {}
+            fresh = BatchScheduler(ep.graph)
+            for m, mode in (("bucket", E.MODE_BUCKET), ("static", E.MODE_STATIC)):
+                sched.mode = fresh.mode = mode
+                row["fresh"][m] = check_drains(sched, fresh, wl_delta,
+                                               f"live e{ep.id} {m} delta vs fresh merged")
+            del fresh
+        if ep.id in (0, 1):
+            # the partitioned engine, its epoch-1 tables through the hint
+            psched.pin_epoch(ep)
+            t0 = time.perf_counter()
+            p_res = served_answers(psched, wl, f"live e{ep.id} partitioned")
+            p_s = time.perf_counter() - t0
+            _, arrays = EP.partition_for(ep.graph, LIVE_WORKERS)
+            p = dict(epoch=ep.id, drain_s=p_s, **arrays.setup_s,
+                     check=hold_answers(p_res, res["static"], wl,
+                                        f"live e{ep.id} partitioned vs auto"))
+            partitioned.append(p)
+            log(f"live: e{ep.id} partitioned static drain (W={LIVE_WORKERS}) equals the auto "
+                f"drain ({p['check']['n_ge_2_24']} entries >= 2^24); tables via "
+                f"{p['path']}: partition {p['partition']:.3f}s, tables {p['tables']:.3f}s; "
+                f"first drain {p_s:.1f}s")
+            if ep.id == 1 and p["path"] != "hint":
+                raise AssertionError("live: epoch 1's partition tables did not come "
+                                     "through the hint")
+            ep.graph.__dict__.pop("_partition_dev_cache", None)
+            del p_res
+            if ep.id == 1:
+                e0_graph = mgr.mat.base_graph
+                e0_graph.__dict__.pop("_partition_dev_cache", None)
+                del psched
+        if final:
+            row["vs_serve"] = {m: hold_answers(res[m], served[m], wl,
+                                               f"live final {m} vs serve phase")
+                               for m in ("bucket", "static")}
+        now = sched.exec_cache.stats.as_dict()
+        row["cache"] = dict(now, since={k: v - ex[k] for k, v in now.items()},
+                            invalidations_total=invalidations())
+        ex = now
+        row["launches"] = launches_since(mark)
+        row["wall_s"] = time.perf_counter() - t_ep
+        b, st = row["bucket"], row["static"]
+        log(f"live: epoch {ep.id}: {ep.n_events} events, materialize "
+            f"{row['materialize_s']:.2f}s, seal {seal_s:.2f}s (ingest {ingest_s:.2f}s); "
+            f"fp {ep.fingerprint} base {ep.base_fingerprint}; delta {ep.n_delta_edges} "
+            f"edges, capacity {row['capacity']}; bucket wall_ms={b['wall_ms']:.3f} "
+            f"p50={b['latency_ms_p50']:.3f} p99={b['latency_ms_p99']:.3f}, static "
+            f"wall_ms={st['wall_ms']:.3f} p50={st['latency_ms_p50']:.3f} "
+            f"p99={st['latency_ms_p99']:.3f}; dispatches delta/merged bucket "
+            f"{b['n_delta']}/{b['n_merged']} static {st['n_delta']}/{st['n_merged']}; "
+            f"executable cache since the last epoch's drains hit/miss/invalidation "
+            f"{row['cache']['since']['hits']}/{row['cache']['since']['misses']}/"
+            f"{row['cache']['since']['invalidations']} (registry invalidations "
+            f"{row['cache']['invalidations_total']:.0f}); peak_GiB={b['peak_bytes'] / 2**30:.3f} "
+            f"resident_GiB={b['resident_bytes'] / 2**30:.3f}; launches B1 "
+            f"{row['launches']['fused_hop_cols']} B2 {row['launches']['fused_hop_interval']} "
+            f"B3 {row['launches']['scatter_cols']}; delta groups ms (delta path / base "
+            f"dense without the delta) bucket {json.dumps(b.get('delta_cost', {}))} static "
+            f"{json.dumps(st.get('delta_cost', {}))}; drains and checks {row['wall_s']:.1f}s")
+        info["epochs"].append(row)
+        free_memory()
+        if final:
+            break
+        # ---- ingest the next chunk; the pinned epoch must not see it
+        t0 = time.perf_counter()
+        if ep.id < LIVE_EPOCHS:
+            ids = chunks[ep.id]
+            mgr.ingest(held[int(ids[0]): int(ids[-1]) + 1])
+        ingest_s = time.perf_counter() - t0
+        sched.mode = E.MODE_STATIC
+        snap = hold_answers(served_answers(sched, wl, f"live e{ep.id} snapshot"),
+                            res["static"], wl, f"live e{ep.id} snapshot isolation")
+        row["snapshot"] = snap
+        del res
+        t0 = time.perf_counter()
+        ep = mgr.advance(sched, compact=True if ep.id == LIVE_EPOCHS else None)
+        seal_s = time.perf_counter() - t0
+        if not ep.compacted and invalidations():
+            raise AssertionError(f"live e{ep.id}: {invalidations()} cache invalidations")
+        if ep.id == LIVE_EPOCHS + 1 and not (ep.compacted and invalidations() > 0):
+            raise AssertionError(f"live: the compacting advance invalidated "
+                                 f"{invalidations()} entries")
+    info["partitioned"] = partitioned
+    info["cli"] = live_cli()
+    info["launches"] = launches_since(mark0)
+    missing = [k for k, v in info["launches"].items() if v == 0]
+    if missing:
+        raise AssertionError(f"live: the drains never launched {missing}")
+    del sched, mgr, elog, held
+    free_memory()
+    info["wall_s"] = time.perf_counter() - t_phase
+    log(f"live: launches over the phase {info['launches']}; phase {info['wall_s']:.1f}s")
     return info
 
 
@@ -2321,12 +2771,15 @@ def main(argv=None) -> int:
     REPORT["partitioned"], part_kernels = phase_partitioned(graph, jobs,
                                                            REPORT["main"]["rows"])
     kernels += part_kernels
-    REPORT["serve"] = phase_serve(graph)
-    for e in kernels[:len(kernels) - len(part_kernels)]:   # B1/B3 on the serve path
+    served = {}
+    REPORT["serve"] = phase_serve(graph, served)
+    REPORT["live"] = phase_live(graph, served)
+    for e in kernels[:len(kernels) - len(part_kernels)]:   # B1-B3 on the serve paths
         base = e["name"].split("[")[0]
-        if base in REPORT["serve"]["launches"]:
-            e["serve_launches"] = REPORT["serve"]["launches"][base]
-    del rec, graph, jobs
+        for phase in ("serve", "live"):
+            if base in REPORT[phase]["launches"]:
+                e[f"{phase}_launches"] = REPORT[phase]["launches"][base]
+    del rec, graph, jobs, served
     free_memory()
     REPORT["lm"], lm_kernels = phase_lm()
     REPORT["dlrm"], dlrm_kernels = phase_dlrm()

@@ -28,7 +28,9 @@ and the ETR-at-join contraction.
 
 ``execute()`` routes between dense and sliced (``engine_sliced.py``); the
 partitioned executor (``engine_partitioned.py``) plugs its own segment runner
-into ``execute_plan``.
+into ``execute_plan``.  ``batch_executable_delta`` is the live-graph entry:
+the compacted base graph's hops plus the delivery of the edges appended
+since (``graphdata/ingest.DeltaSpec``), equal to the merged epoch's answers.
 """
 from __future__ import annotations
 
@@ -86,9 +88,19 @@ def run_segment(
     minmax_col=None,
     impl: str = "torch",
     need_final_e: bool = True,
+    delta=None,
 ) -> SegmentResult:
     """Run one path segment.  v_preds has one more entry than e_preds; the
     FINAL vertex predicate is NOT applied (it belongs to the join).
+
+    ``delta`` (a ``graphdata.ingest.DeltaSpec.device(device)`` dict) adds
+    the base+delta execution path: every plain hop also evaluates the edge
+    predicate over the delta-edge slots and adds their (unsorted) delivery
+    to the base arrivals — bit-identical to running on the merged epoch
+    graph, with the base graph's arrival CSR (and so the kernels' launch
+    shapes) untouched.  ETR hops read global rank tables and are
+    delta-incompatible (callers gate on query shape;
+    ``batch_executable_delta`` refuses them).
 
     With ``impl='cuda'`` every plain hop runs the FUSED gather → temporal
     mask → segment-reduce kernel (``superstep.fused_hop_deliver``; the
@@ -136,6 +148,9 @@ def run_segment(
             prev_raw_e = None  # only an ETR hop reads the previous counts
         arrivals_e = None
         if ep.etr_op != -1:
+            if delta is not None:
+                raise NotImplementedError(
+                    "delta execution across ETR hops (global rank tables)")
             if with_minmax:
                 raise NotImplementedError("min/max aggregation across ETR hops")
             # ETR hop: prefix-sum over *raw* previous arrivals, then apply the
@@ -157,6 +172,13 @@ def run_segment(
                 src_val = sv[:, t_src]
         cnt_e = (SS.apply_edge(src_val, wmask, evalidity, mode, bedges)
                  if need_e else None)
+        d_add = d_mm = None
+        if delta is not None:
+            # delta-segment contribution, from the SAME pre-hop source state
+            # and extremum channel the base delivery reads
+            d_add, d_mm = SS.delta_hop_deliver(
+                delta, ep, sv, params, pbases_e[i], mode, V, bedges,
+                mch=(mch_v if with_minmax else None), minmax_op=minmax_op)
         if fused and ep.etr_op == -1:
             # fused kernel hop: arrivals (and the extremum channel) come from
             # one pass over the state table, with no per-edge state
@@ -170,6 +192,12 @@ def run_segment(
             if with_minmax:
                 m_e = SS.minmax_edge(mch_v[:, t_src], cnt_e, minmax_op, mode)
                 mch_v = SS.deliver_extremum(m_e, ptr, V, minmax_op, impl=impl)
+        if d_add is not None:
+            arrivals_v = arrivals_v + d_add
+            if with_minmax:
+                comb = torch.minimum if minmax_op == Q.AGG_MIN else torch.maximum
+                mch_v = comb(mch_v, d_mm)
+            del d_add, d_mm
         stat = dict(phase=f"hop{i}", matched_edges=wmask.sum(dim=1))
         if not fused:
             # per-edge activity would force the materialisation the fused
@@ -212,7 +240,7 @@ def pbases(qry: Q.PathQuery):
 
 def execute_plan(gdev, qry: Q.PathQuery, split: int, mode: int, n_buckets: int,
                  params, bedges, impl: str = "torch",
-                 segment_runner=None) -> ExecOutput:
+                 segment_runner=None, delta=None) -> ExecOutput:
     """Plan execution for a batch of same-shape queries (``params`` int32
     [Q, n_clauses, 3]).  All query structure is Python-static.
 
@@ -220,7 +248,9 @@ def execute_plan(gdev, qry: Q.PathQuery, split: int, mode: int, n_buckets: int,
     executor reuse the split/join skeleton, as the partitioned one does.  It
     is called as ``run_segment`` is, without ``gdev``, ``bedges`` and
     ``impl``, plus ``need_final_e``; it must return a ``SegmentResult`` in
-    GLOBAL vertex/traversal-edge space."""
+    GLOBAL vertex/traversal-edge space.  ``impl`` and ``delta`` (the
+    base+delta path, see ``run_segment``) only parameterise the default
+    dense runner."""
     n = qry.n_vertices
     assert 0 <= split < n
     pv, pe = pbases(qry)
@@ -234,7 +264,7 @@ def execute_plan(gdev, qry: Q.PathQuery, split: int, mode: int, n_buckets: int,
         if segment_runner is not None:
             return segment_runner(*a, need_final_e=etr_at_join, **kw)
         return run_segment(gdev, *a, bedges=bedges, impl=impl,
-                           need_final_e=etr_at_join, **kw)
+                           need_final_e=etr_at_join, delta=delta, **kw)
 
     rev = qry.reversed()
 
@@ -422,6 +452,51 @@ def batch_executable(
             full[:, lo:hi] = per_vertex
             per_vertex = full
         return ExecOutput(out.total, per_vertex, out.minmax, out.stats)
+
+    return run
+
+
+def batch_executable_delta(
+    graph: TemporalGraph,
+    qry: Q.PathQuery,
+    split: Optional[int] = None,
+    mode: int = MODE_STATIC,
+    n_buckets: int = 16,
+    impl: str = "cuda",
+    device=None,
+):
+    """Base+delta twin of ``batch_executable`` for live-graph serving.
+
+    ``graph`` is the COMPACTED BASE; the returned ``run(params, delta)``
+    additionally takes a ``graphdata.ingest.DeltaSpec.device(device)`` dict
+    and answers as if the delta edges were part of the graph —
+    bit-identical to ``batch_executable`` on the merged epoch graph
+    (tests/test_torch_ingest.py).  The base hops run on the base graph's
+    arrival CSR (the fused hop kernels with ``impl='cuda'``); each hop adds
+    the delta's unsorted delivery after it.  The executable binds nothing
+    of the delta, so one executable serves every epoch of a compaction
+    window.
+
+    ETR hops read whole-graph rank tables, so queries containing them are
+    refused (the scheduler serves those from the merged epoch graph).
+    ``device`` follows ``batch_executable``'s rule.
+    """
+    if any(e.etr_op != -1 for e in qry.e_preds):
+        raise ValueError("ETR hops need global rank tables — not delta-"
+                         "executable; serve from the merged epoch graph")
+    dev = resolve_device(device)
+    check_impl(impl)
+    if split is None:
+        split = default_split(qry)
+    gdev = prepare_gdev(graph, dev)
+    bedges = bucket_edges_for(graph, n_buckets, dev)
+
+    def run(params, delta) -> ExecOutput:
+        params = torch.as_tensor(np.asarray(params, np.int32)).to(dev)
+        with torch.no_grad():
+            out = execute_plan(gdev, qry, split, mode, n_buckets, params,
+                               bedges, impl=impl, delta=delta)
+        return ExecOutput(out.total, out.per_vertex, out.minmax, out.stats)
 
     return run
 

@@ -447,7 +447,9 @@ def partition_for(graph: TemporalGraph, n_workers: int,
     """(Partitioning, PartitionArrays) for a graph, cached ON the graph
     object so the cache's lifetime (and the validity of the ownership
     tables) is tied to the graph itself.  The set-up seconds of a fresh
-    build are kept on the arrays as ``setup_s`` (partition, tables)."""
+    build are kept on the arrays as ``setup_s`` (partition, tables, and
+    ``path``: ``"hint"`` when an ingestion epoch's partition hint extended
+    its base graph's partitioning, ``"fresh"`` when the partitioner ran)."""
     from ..graphdata.partitioner import build_partition_arrays, partition_graph
 
     ppt = parts_per_type if parts_per_type is not None else max(4, n_workers // 2)
@@ -459,11 +461,19 @@ def partition_for(graph: TemporalGraph, n_workers: int,
     hit = cache.get(key)
     if hit is None:
         t0 = time.perf_counter()
-        part = partition_graph(graph, n_workers=n_workers, parts_per_type=ppt)
+        # an ingestion epoch attaches a partition hint (graphdata/ingest.py)
+        # that extends the BASE graph's cached partitioning over the delta
+        # instead of re-running BFS growth; None → fresh partition
+        hint = getattr(graph, "_partition_hint", None)
+        part = hint(n_workers, ppt) if hint is not None else None
+        path = "fresh" if part is None else "hint"
+        if part is None:
+            part = partition_graph(graph, n_workers=n_workers,
+                                   parts_per_type=ppt)
         t1 = time.perf_counter()
         arrays = build_partition_arrays(graph, part)
         arrays.setup_s = dict(partition=t1 - t0,
-                              tables=time.perf_counter() - t1)
+                              tables=time.perf_counter() - t1, path=path)
         hit = (part, arrays)
         cache[key] = hit
     return hit

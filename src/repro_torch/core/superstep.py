@@ -24,6 +24,9 @@ it in this package:
                                                    segment-reduce, never
                                                    materialising [Q, E, *TS])
   extremum channel       minmax_seed(), minmax_edge(), deliver_extremum()
+  delta segment          delta_hop_deliver()     — a hop's contribution from
+                                                   the unsorted padded edges
+                                                   appended since the base
   boundary exchange      exchange_plan(),
                          p2p_exchange()          — ragged all-to-all over the
                                                    partitioner's lane tables
@@ -610,6 +613,49 @@ def deliver_extremum(m_e, ptr, num_segments: int, op: int, impl: str = "torch"):
     m_e = m_e.contiguous()
     return HK.scatter_extremum(m_e, torch.ones_like(m_e), ptr, neutral,
                                op == Q.AGG_MIN)
+
+
+# =========================================================================
+# delta-segment delivery (base-CSR + delta execution, graphdata/ingest.py)
+# =========================================================================
+def delta_hop_deliver(delta, ep, sv, params, pbase, mode: int, V: int, bedges,
+                      mch=None, minmax_op=Q.AGG_MIN):
+    """One hop's arrival contribution from a padded delta-edge segment.
+
+    ``delta`` is a ``DeltaSpec.device(device)`` dict shaped like a tiny
+    unsorted gdev (t_src/t_dst/t_life/t_type/t_isfwd/eprops_t over
+    2·capacity slots plus a ``valid`` mask killing the padding).  The hop's
+    edge predicate is evaluated over the delta slots exactly as over base
+    traversal edges, the per-edge counts are delivered with an UNSORTED
+    segment sum (``index_add_``: delta edges are in appended order, not
+    arrival order, so no CSR walk applies), and the extremum channel rides
+    along with ``scatter_reduce_`` when ``mch`` is given.  Because counts
+    are exact small integers in float32, base sum + delta sum equals the
+    merged graph's single sum bit for bit, whatever order the atomics add
+    in — the invariant that makes the base+delta executable
+    interchangeable with a from-scratch epoch build.
+
+    ``sv`` is the hop's pre-hop source state [Q, V, *TS] and ``mch`` the
+    pre-hop extremum channel [Q, V], the ones the base delivery reads.
+    Returns (arrival counts [Q, V, *TS], extremum [Q, V] | None) to be
+    combined into the base hop's delivery (add / min-max respectively).
+    """
+    wmask, evalid = edge_predicate_weights(delta, ep, params, pbase, mode,
+                                           bedges)
+    wmask = and_rows(wmask, delta["valid"])
+    src, dst = delta["t_src_l"], delta["t_dst_l"]
+    cnt = apply_edge(sv[:, src], wmask, evalid, mode, bedges)
+    nq = cnt.shape[0]
+    add = cnt.new_zeros((nq, V) + tuple(cnt.shape[2:])).index_add_(1, dst, cnt)
+    mm = None
+    if mch is not None:
+        m_e = minmax_edge(mch[:, src], cnt, minmax_op, mode)
+        mm = torch.full((nq, V), minmax_neutral(minmax_op), dtype=F32,
+                        device=m_e.device)
+        mm.scatter_reduce_(1, dst.expand(nq, -1), m_e,
+                           "amin" if minmax_op == Q.AGG_MIN else "amax",
+                           include_self=True)
+    return add, mm
 
 
 # =========================================================================

@@ -7,14 +7,14 @@ execution budget (the paper's 600 s budget, scaled).  Throughput serving
 goes through the batch-scheduler runtime (``run_workload_scheduled`` /
 ``serving``).
 
-    python -m repro_torch.launch.query [--device cpu] [--serve | --replay]
+    python -m repro_torch.launch.query [--device cpu] [--serve | --replay | --live]
 
 The port of the reference package's ``launch/query.py``.  It runs on the
 card unless ``--device cpu`` is given (with no GPU it raises otherwise), on
 the hop kernels (``impl='cuda'``).  ``--engine partitioned`` serves through
-the partitioned executor over ``--workers`` workers (with ``--serve`` or
-``--replay``).  Live-graph serving (``--live``, ``--wal``; ROADMAP A8) is
-not ported yet and exits with a message.
+the partitioned executor over ``--workers`` workers (with ``--serve``,
+``--replay`` or ``--live``).  ``--live`` serves epoch-pinned snapshots of an
+ingesting event log, journaled to ``--wal`` and recovered from it.
 """
 from __future__ import annotations
 
@@ -129,9 +129,67 @@ class GraniteServer:
         return sched.run(workload, warm=warm)
 
 
+def _serve_live(args, graph, workload, tracer, metrics, device):
+    """``--live``: epoch-pinned serving over an ingesting event log.
+
+    A fresh start decomposes the built graph into epoch 0 minus
+    ``--holdout`` edges, attaches the WAL (when ``--wal`` is given), then
+    ingests the held-out edges back across ``--epochs`` sealed epochs,
+    draining the workload against each pinned snapshot.  If the WAL path
+    already exists the server RECOVERS instead: the torn tail is truncated,
+    sealed epochs replay, and serving resumes from the exact pre-crash
+    pinned fingerprint (crash-recoverable ingestion).
+    """
+    import os
+    from ..graphdata.ingest import log_from_graph
+    from ..serving import BatchScheduler, EpochManager
+
+    held: list = []
+    if args.wal and os.path.exists(args.wal):
+        mgr = EpochManager.recover(args.wal, metrics=metrics, tracer=tracer)
+        print(f"recovered {mgr.log.n_epochs} sealed epoch(s) from "
+              f"{args.wal}: pinned fp {mgr.current.fingerprint}, "
+              f"{mgr.log.n_open} open event(s) pending")
+    else:
+        log, held = log_from_graph(graph, holdout_edges=args.holdout,
+                                   seed=args.seed)
+        if args.wal:
+            log.attach_wal(args.wal)
+            print(f"WAL -> {args.wal}")
+        mgr = EpochManager(log, metrics=metrics, tracer=tracer)
+
+    sched = BatchScheduler(graph, engine=args.engine,
+                           use_planner=not args.no_planner,
+                           tracer=tracer, metrics=metrics, device=device,
+                           n_workers=args.workers)
+    mgr.attach(sched)
+
+    def drain(tag: str):
+        recs = sched.run(workload, warm=True)
+        done = sum(1 for r in recs if r.ok)
+        lat = np.mean([r.latency_ms for r in recs if r.ok]) if done else 0.0
+        print(f"  {tag}: fp={sched.pinned_epoch.fingerprint} "
+              f"done={done}/{len(recs)} avg={lat:.2f}ms")
+
+    drain(f"epoch {mgr.current.id}")
+    if mgr.log.n_open:              # open suffix survived the crash: seal it
+        ep = mgr.advance(sched)
+        drain(f"epoch {ep.id} (recovered open suffix)")
+    if held:
+        chunks = np.array_split(np.arange(len(held)), max(args.epochs, 1))
+        for ids in chunks:
+            if not len(ids):
+                continue
+            mgr.ingest(held[int(ids[0]): int(ids[-1]) + 1])
+            ep = mgr.advance(sched)
+            drain(f"epoch {ep.id} (+{len(ids)} edges)")
+    mgr.log.close_wal()
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     """Thin CLI over the serving runtime: sequential loop (default), batched
-    scheduler drain (--serve) or open-loop Poisson replay (--replay)."""
+    scheduler drain (--serve), open-loop Poisson replay (--replay), or
+    live epoch-pinned serving with a crash-recoverable WAL (--live)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--persons", type=int, default=1000)
     ap.add_argument("--dist", default="facebook",
@@ -155,18 +213,22 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the card, the default) or 'cpu'")
     ap.add_argument("--live", action="store_true",
-                    help="live-graph serving (not ported yet: ROADMAP A8)")
+                    help="live-graph serving: ingest epochs from an event "
+                         "log and serve each pinned snapshot")
     ap.add_argument("--wal", default=None, metavar="PATH",
-                    help="--live write-ahead log (not ported yet: ROADMAP A8)")
+                    help="--live write-ahead log; if PATH exists the server "
+                         "recovers from it instead of rebuilding")
+    ap.add_argument("--holdout", type=int, default=64,
+                    help="--live edges held out of epoch 0 and ingested "
+                         "back across --epochs live epochs")
+    ap.add_argument("--epochs", type=int, default=3,
+                    help="--live ingestion epochs after epoch 0")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="record the query flight recorder to a trace JSONL")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the metrics registry at exit (.json = JSON "
                          "snapshot, anything else = Prometheus text format)")
     args = ap.parse_args(argv)
-    if args.live or args.wal:
-        raise SystemExit("--live/--wal: live-graph serving is not ported yet "
-                         "(ROADMAP A8)")
 
     params = LdbcParams(n_persons=args.persons, degree_dist=args.dist,
                         dynamic=args.dynamic)
@@ -191,6 +253,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         if metrics is not None:
             metrics.write(args.metrics_out)
             print(f"metrics -> {args.metrics_out}")
+
+    if args.live:
+        _serve_live(args, g, wl, tracer, metrics, server.device)
+        _finish_obs()
+        return
 
     if args.replay:
         from ..serving import BatchScheduler, replay_workload

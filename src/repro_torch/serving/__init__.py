@@ -30,15 +30,20 @@ Layout:
   testing.py    FakeDispatcher: synthetic service times on a virtual clock,
                 no engine call — the deterministic harness the SLO layer is
                 tested on
+  epochs.py     live graphs: EpochManager streams events into the
+                append-only log (graphdata/ingest.py), seals immutable
+                epochs, decides compaction, evicts retired fingerprints and
+                pins the scheduler (``BatchScheduler.pin_epoch``); recovers
+                from the log's WAL
 
-The port of the reference package's ``serving/``.  Live-graph epochs
-(``epochs.py``) are not ported yet (ROADMAP A8).
+The port of the reference package's ``serving/``.
 """
 from .admission import (AdmissionController, AdmissionDecision,
                         AdmissionPolicy)
 from .cache import (ExecutableCache, PlanCache, graph_fingerprint,
                     layout_signature)
 from .compile import PlanTensor, bucket_key, compile_plan_tensor
+from .epochs import Epoch, EpochManager
 from .faults import (CompileError, FaultError, FaultPlan, PoisonQueryError,
                      RetryPolicy, TornWriteError, TransientDispatchError,
                      WorkerLostError)
@@ -55,4 +60,5 @@ __all__ = [
     "TelemetryBuffer", "FakeDispatcher",
     "FaultPlan", "RetryPolicy", "FaultError", "TransientDispatchError",
     "CompileError", "WorkerLostError", "TornWriteError", "PoisonQueryError",
+    "Epoch", "EpochManager",
 ]

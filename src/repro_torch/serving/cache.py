@@ -152,9 +152,9 @@ class PlanCache:
         """Targeted invalidation: drop entries whose KEY matches ``pred``;
         returns the count.  Unlike ``clear`` (one whole-cache event), every
         evicted entry counts as one invalidation — the live-graph path
-        (ROADMAP A8) evicts only keys mentioning retired fingerprints at
-        compaction, and the counters are how tests assert that nothing else
-        was touched."""
+        (``serving/epochs.py``) evicts only keys mentioning retired
+        fingerprints at compaction, and the counters are how tests assert
+        that nothing else was touched."""
         dead = [k for k in self._plans if pred(k)]
         for k in dead:
             del self._plans[k]

@@ -45,8 +45,8 @@ failing is bisected until the single poison query is isolated and rejected
 with a structured error while the rest of the batch still answers).
 
 The port's copy of the reference package's ``serving/faults.py``.  The
-``wal`` point and ``TornWriteError`` serve the live-graph event log, which
-is not ported yet (ROADMAP A8); the ``worker`` point serves the partitioned
+``wal`` point and ``TornWriteError`` serve the live-graph event log
+(``graphdata/ingest.py``); the ``worker`` point serves the partitioned
 engine (``core/engine_partitioned.py``).
 """
 from __future__ import annotations

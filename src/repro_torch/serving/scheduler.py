@@ -20,8 +20,9 @@ Engines: ``dense`` / ``sliced`` (``core/engine.batch_executable``),
 ``n_workers`` workers, simulated on one device: one dispatch runs
 batch × workers with the point-to-point boundary exchange between
 supersteps), or ``auto`` (sliced when the query qualifies, dense otherwise —
-resolved at admission so the group key is concrete).  ``pin_epoch`` (live
-graphs) is not ported yet and raises (ROADMAP A8).
+resolved at admission so the group key is concrete).  ``pin_epoch`` serves a
+live graph's sealed epochs (``serving/epochs.py``), pure edge-append windows
+on the base+delta executable (``core/engine.batch_executable_delta``).
 
 Hop-delivery lowering: the ``impl`` knob (``HOP_IMPLS``) pins every group on
 one lowering — ``'cuda'``, the hand-written hop kernels (the default), or
@@ -171,6 +172,7 @@ class GroupDispatch:
     predicted_ms: float = 0.0    # cost-model prediction (telemetry rows)
     n_retries: int = 0           # backoff retries the unit burned
     penalty_s: float = 0.0       # accounted retry backoff inside service_s
+    delta: bool = False          # served on the base+delta executable path
     #: CUDA-event time of the timed call on the card (None on the CPU or
     #: with an injected dispatcher)
     event_ms: Optional[float] = None
@@ -192,6 +194,28 @@ class BatchScheduler:
     once through the batch-aware cost model (memoised in ``plan_cache``),
     and dispatches ONE batched engine call per group through ``exec_cache``
     — earliest-deadline-first, results in submission order.
+
+    Live graphs: ``pin_epoch(epoch)`` (driven by ``serving.epochs.
+    EpochManager.advance``) switches the scheduler to a sealed-epoch
+    snapshot without dropping warm state.  Between two compactions the
+    *base* graph (``self.graph``) — planner stats, partitionings,
+    executables — is immutable; an epoch whose delta window is pure edge
+    appends serves eligible groups on the base+delta executable
+    (``engine.batch_executable_delta``), so cache keys carrying the base
+    fingerprint keep hitting across epochs.  Ineligible groups (ETR hops,
+    impure windows, non-dense engines) serve from the epoch's merged graph
+    under the epoch fingerprint.  Either way results are bit-identical to a
+    from-scratch build of the pinned epoch's graph, and queries never see
+    events sealed after their batch's pin.
+
+    Key invariants:
+      * plan keys carry the BASE fingerprint (splits are planned against
+        base statistics; any split yields identical results);
+      * executable keys carry the serving fingerprint — the base
+        fingerprint for delta dispatches, the epoch fingerprint otherwise;
+      * cache eviction at compaction is targeted (``evict`` of retired
+        fingerprints), counted per entry in the metrics registry as
+        ``granite_cache_total{event="invalidation"}``.
     """
 
     def __init__(
@@ -241,6 +265,18 @@ class BatchScheduler:
         self._stats = GraphStats(graph, n_time_buckets=n_buckets)
         self._planner = Planner(graph, self._stats)
         self._planner_part: Optional[Planner] = None  # built on first use
+        # ---- epoch pinning (pin_epoch): base vs serving graph split.
+        # self.graph stays the compaction BASE (planner stats, partition
+        # tables, delta executables bind to it); _serve_graph is the pinned
+        # epoch's merged graph (== graph until an epoch is pinned).
+        self._serve_graph = graph
+        self._base_fp = self.fingerprint    # compaction-base fingerprint
+        self._plan_fp = self.fingerprint    # fingerprint slot of plan keys
+        self._epoch = None
+        self._delta = None                  # DeltaSpec.device() dict | None
+        self._delta_capacity = 0
+        self._warmed_delta = set()          # (ekey, capacity) pairs warmed
+        self._last_used_delta = False
         self._queue: List[QueueEntry] = []
         self.last_dispatches: List[GroupDispatch] = []
         self.n_dispatched = 0
@@ -364,6 +400,13 @@ class BatchScheduler:
     def _engine_for(self, qry: Q.PathQuery) -> str:
         if self.engine != "auto":
             return self.engine
+        # with a pinned pure-append delta window, ETR-free queries steer to
+        # the dense engine: base+delta execution is dense-only (the sliced
+        # engine binds type extents to one concrete graph) and reusing the
+        # base executable beats rebuilding a sliced one on every epoch
+        if self._delta is not None and all(
+                ep.etr_op == -1 for ep in qry.e_preds):
+            return "dense"
         return "sliced" if ES.sliceable(qry) else "dense"
 
     # ------------------------------------------------------------- planning
@@ -381,7 +424,10 @@ class BatchScheduler:
 
     def _plan_key(self, bucket: tuple, mode: int, engine: str,
                   impl_choice: str) -> tuple:
-        return (bucket, self.fingerprint, mode, engine, self.n_buckets,
+        # plans are keyed by the BASE fingerprint: split choice comes from
+        # base statistics and stays optimal-enough across edge-append epochs
+        # (any split is result-identical); compaction retires the key
+        return (bucket, self._plan_fp, mode, engine, self.n_buckets,
                 self.n_workers if engine == "partitioned" else 0, impl_choice)
 
     def _plan_group(self, queries: List[Q.PathQuery], bucket: tuple,
@@ -414,13 +460,21 @@ class BatchScheduler:
     def _build_executable(self, qry: Q.PathQuery, split: int, mode: int,
                           engine: str, impl: str):
         if engine == "partitioned":
-            return EP.batch_executable(self.graph, qry, split, mode,
+            return EP.batch_executable(self._serve_graph, qry, split, mode,
                                        self.n_buckets, self.n_workers,
                                        impl=impl, device=self.device)
-        return E.batch_executable(self.graph, qry, split, mode,
+        return E.batch_executable(self._serve_graph, qry, split, mode,
                                   self.n_buckets,
                                   sliced=(engine == "sliced"), impl=impl,
                                   device=self.device)
+
+    def _delta_eligible(self, qry: Q.PathQuery, engine: str) -> bool:
+        """Can this group run on the base+delta executable?  Needs a pinned
+        pure-append delta window, the dense engine (sliced/partitioned bind
+        type extents / partition tables to a concrete graph), and no ETR
+        hops (global rank tables)."""
+        return (self._delta is not None and engine == "dense"
+                and all(ep.etr_op == -1 for ep in qry.e_preds))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -432,18 +486,43 @@ class BatchScheduler:
         """The real build-and-run step: executable cache → one batched call,
         timed on the injected clock after the card has finished.  Swapped
         out wholesale by an injected ``dispatcher``.  Returns (output,
-        seconds, exec_cached, CUDA-event ms or None)."""
+        seconds, exec_cached, CUDA-event ms or None).
+
+        Delta-eligible groups run ``engine.batch_executable_delta`` against
+        the compaction BASE: their cache key carries the base fingerprint
+        (not the epoch's) and no capacity, so one cached executable serves
+        every epoch of the window — the scheduler only re-warms when the
+        padded delta capacity grows (new delta shapes: new first-call
+        costs inside the same entry)."""
+        use_delta = self._delta_eligible(queries[0], engine)
+        self._last_used_delta = use_delta
+        fp = ("delta", self._base_fp) if use_delta else self.fingerprint
+        lay_graph = self.graph if use_delta else self._serve_graph
         n_workers = self.n_workers if engine == "partitioned" else 0
-        ekey = (engine, self.fingerprint, bucket, split, mode,
+        ekey = (engine, fp, bucket, split, mode,
                 self.n_buckets, n_workers, impl,
-                layout_signature(self.graph, engine, queries[0], impl,
+                layout_signature(lay_graph, engine, queries[0], impl,
                                  n_workers),
                 pt.params.shape[0])
         exec_cached = ekey in self.exec_cache
-        run = self.exec_cache.get_or_build(
-            ekey, lambda: self._build_executable(queries[0], split, mode,
-                                                 engine, impl))
-        if warm and not exec_cached:
+        if use_delta:
+            run0 = self.exec_cache.get_or_build(
+                ekey, lambda: E.batch_executable_delta(
+                    self.graph, queries[0], split, mode, self.n_buckets,
+                    impl=impl, device=self.device))
+            delta = self._delta
+            run = lambda params: run0(params, delta)  # noqa: E731
+            # a cached delta executable still meets new shapes when the
+            # padded capacity grows — warm per (key, capacity), not per key
+            warm_needed = (ekey, self._delta_capacity) not in self._warmed_delta
+            if warm and warm_needed:
+                self._warmed_delta.add((ekey, self._delta_capacity))
+        else:
+            run = self.exec_cache.get_or_build(
+                ekey, lambda: self._build_executable(queries[0], split,
+                                                     mode, engine, impl))
+            warm_needed = not exec_cached
+        if warm and warm_needed:
             # first dispatch at this key: run once untimed so first-call
             # costs (kernel loads, allocator growth) stay out of latency
             run(pt.params)
@@ -506,10 +585,42 @@ class BatchScheduler:
 
     # ------------------------------------------------------------ epochs
     def pin_epoch(self, epoch) -> None:
-        """Live-graph serving pins a sealed epoch; it is not ported yet."""
-        raise NotImplementedError(
-            "live-graph epochs and the delta path are not ported yet "
-            "(ROADMAP A8)")
+        """Pin serving to a sealed epoch (``serving.epochs.Epoch``).
+
+        Until the next pin, every dispatch answers from this epoch's graph
+        — queries never observe later (or unsealed) events, and results are
+        bit-identical to a from-scratch build of the epoch's graph.  On a
+        compacted epoch the scheduler REBASEs: planner statistics, the
+        partitioned planner, and the estimate memo are rebuilt against the
+        new base (cache eviction of retired fingerprints is the
+        EpochManager's job, so its metrics can count what was dropped).
+        Non-compacted epochs keep all warm state; delta-pure ones also
+        attach the delta block, on the scheduler's device, for the
+        base+delta dispatch path."""
+        if epoch.base_fingerprint != self._base_fp:
+            base = epoch.base_graph if epoch.base_graph is not None else epoch.graph
+            self.graph = base
+            self._stats = GraphStats(base, n_time_buckets=self.n_buckets)
+            self._planner = Planner(base, self._stats)
+            self._planner_part = None
+            self._est_memo.clear()
+            self._warmed_delta.clear()
+        self._epoch = epoch
+        self._base_fp = epoch.base_fingerprint
+        self._plan_fp = epoch.base_fingerprint
+        self.fingerprint = epoch.fingerprint
+        self._serve_graph = epoch.graph
+        if epoch.delta is not None:
+            self._delta = epoch.delta.device(self.device)
+            self._delta_capacity = epoch.delta.capacity
+        else:
+            self._delta = None
+            self._delta_capacity = 0
+
+    @property
+    def pinned_epoch(self):
+        """The currently pinned ``Epoch`` (None before any ``pin_epoch``)."""
+        return self._epoch
 
     def _estimate_query(self, qry: Q.PathQuery, split: int, engine: str,
                         impl: str):
@@ -756,6 +867,7 @@ class BatchScheduler:
             self._count_fallback("path-down")
         insts = [queue[i].inst for i in idxs]
         queries = [x.qry for x in insts]
+        self._last_used_delta = False
         penalty_s = 0.0
         n_retries = 0
         attempt = 0
@@ -903,7 +1015,7 @@ class BatchScheduler:
             key, engine, split, pt.n_real, pt.n_pad, dt_total, list(idxs),
             plan_cached, exec_cached, impl, group_deadline, predicted_ms,
             n_retries=n_retries, penalty_s=penalty_s, event_ms=event_ms,
-            fallback_from=fallback_from))
+            fallback_from=fallback_from, delta=self._last_used_delta))
 
     def run(self, workload: Sequence[Union[QueryInstance, Q.PathQuery]],
             warm: bool = False) -> List[ServedResult]:

@@ -129,7 +129,8 @@ def results(res):
 def dispatches(sched):
     return [(d.key, d.engine, d.split, d.n_real, d.n_pad, d.service_s,
              d.indices, d.plan_cached, d.exec_cached, d.impl, d.deadline,
-             d.predicted_ms, d.n_retries, d.penalty_s, d.fallback_from)
+             d.predicted_ms, d.n_retries, d.penalty_s, d.fallback_from,
+             d.delta)
             for d in sched.last_dispatches]
 
 
@@ -155,8 +156,7 @@ def report(rep):
 
 
 def fault_report(sched):
-    """The fault counters both packages keep (the reference's live-graph
-    counters belong to a path the port does not have yet)."""
+    """The fault counters both packages keep."""
     rep = sched.fault_report()
     return {k: rep[k] for k in ("n_retries", "n_quarantined", "n_timeout",
                                 "n_fallbacks", "partitioned_available",

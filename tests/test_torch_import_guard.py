@@ -53,7 +53,8 @@ def test_every_module_imports_with_jax_and_the_reference_blocked():
               "repro_torch.configs.dlrm_rm2", "repro_torch.core.planner",
               "repro_torch.serving.scheduler", "repro_torch.obs.trace",
               "repro_torch.launch.query", "repro_torch.core.engine_partitioned",
-              "repro_torch.graphdata.partitioner"):
+              "repro_torch.graphdata.partitioner", "repro_torch.graphdata.ingest",
+              "repro_torch.serving.epochs", "repro_torch.obs.audit"):
         assert m in modules, m
     code = f"""
 import importlib, sys

@@ -2,9 +2,9 @@
 package's.
 
 Every scenario of the reference's ``test_obs.py`` that needs neither the
-cost-model audit (``obs/audit.py``, not ported yet) nor
-``scripts/trace_report.py`` runs in both
-packages (``serving_parity``): the span trees — ids, parents, ticks and
+cost-model audit (``obs/audit.py``) nor ``scripts/trace_report.py`` (both
+held in ``test_torch_audit.py``) runs in both packages
+(``serving_parity``): the span trees — ids, parents, ticks and
 attributes — the metric snapshots and the Prometheus text must be equal,
 with the impl names mapped.  The real-dispatch leg runs the port alone: its
 answers with the recorder attached equal its answers without it, and each
