@@ -54,16 +54,19 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                set-up (partition and table seconds, v_max, e_max, h_max,
                edge cut, size imbalance, exchange volumes, the pad slots the
                kernels' flattened CSR leaves out); every main-path job
-               through ``execute_batch_out(impl='cuda')``, median of 5
-               CUDA-event timings beside the main phase's ms, peak beside
+               through ``execute_batch_out(impl='cuda')``, median of
+               PART_REPEATS[W] CUDA-event timings (3 at W = 4, 1 at W = 8;
+               5 at both until the train phase came) beside the main
+               phase's ms, peak beside
                resident memory; answers held to the main path's impl='cuda'
                (and at W = 4 to partitioned impl='torch'), bit-equal below
                2^24, rtol 1e-6 above (counted); every timed call must
                launch B1 (B2 in interval mode) once per plain hop and B3
                once per ETR hop, and each of the three must launch over the
-               phase.  ``measure_supersteps`` on Q4 and agg-min-2hop in
-               static mode (per-hop makespan, balance, channel volumes);
-               at W = 4 one traced run of each profiled job (phase 5's).
+               phase.  At W = 4 (at both until the train phase came)
+               ``measure_supersteps`` on Q4 and agg-min-2hop in static mode
+               (per-hop makespan, balance, channel volumes), and one traced
+               run of each profiled job (phase 5's).
                Then, at each W, B1-B3 lines on the largest partitioned
                call of each variant (the flattened workers' CSR), timed as
                in phase 6.
@@ -103,11 +106,15 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                Q2-min also in interval mode at epoch 1) on one pinned
                scheduler: a first flush, a steady flush (``timed_flush``)
                whose B1/B2/B3 launches must equal one per hop of each
-               dispatch, and a check flush holding every group to
-               impl='torch' on the epoch's merged graph.  It fails unless
+               dispatch, and a check flush whose counts must equal the
+               steady flush's, holding every group to impl='torch' on the
+               epoch's merged graph at the delta epochs (LIVE_TORCH_EPOCHS;
+               epochs 0 and the compaction's too until the train phase came;
+               the compaction's answers are held to the serve phase's
+               instead).  It fails unless
                the ETR-free groups, and only they, run on the delta path at
-               epochs 1-3, their executables hit the cache at epochs 2 and
-               3, no cache entry is invalidated before the compaction and
+               the delta epochs, their executables hit the cache after the
+               first, no cache entry is invalidated before the compaction and
                some are at it, the delta groups equal a scheduler built
                fresh on the merged graph (epoch 1), a drain after an ingest
                and before the advance equals the one before the ingest, the
@@ -120,9 +127,10 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                (``obs/audit.py``) must equal the live buffer's, and
                ``scripts/torch_trace_report.py --audit`` must render the
                trace.  Then ``python -m repro_torch.launch.query --persons
-               1000 --live --wal build/live.wal --holdout 64 --epochs 3``
-               runs fresh and again on the same WAL, which must recover 4
-               sealed epochs and pin the first run's last fingerprint.
+               1000 --live --wal build/live.wal --holdout 64 --epochs
+               LIVE_EPOCHS`` runs fresh and again on the same WAL, which must
+               recover LIVE_EPOCHS + 1 sealed epochs and pin the first run's
+               last fingerprint.
                Lines: ``live: set-up``, ``audit:``, ``live: epoch k`` (events,
                materialize and seal s, fingerprints, delta edges and
                capacity, flush wall ms and p50/p99, delta/merged dispatches,
@@ -190,6 +198,31 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                against its plain version on captured operands of the
                requests, timed as in phase 6.
 
+  10. train    MiniCPM-2B training (``training/``; the first of
+               ``launch/train.py``'s synthetic zipf batches at every step;
+               AdamW with the configuration's WSD schedule, 100 warm-up
+               steps to lr 3e-4): first its SMOKE variant, the
+               loss and every gradient leaf on the card against the port on
+               the CPU (atol 2e-5); then CONFIG at full width (40 layers,
+               2.72 B parameters in bf16, float32 moments, random weights
+               from SEED, remat on), batch 4 x 1,024 tokens: one warm-up
+               step, 4 timed steps and one step with 2 microbatches on the
+               same batch, each timed by CUDA events with its tokens/s,
+               loss, grad norm, lr, peak and resident memory, and one
+               traced step (device busy and idle share, top kernels); it
+               fails unless every loss and grad norm is finite and the last
+               loss is below the first.  Then two layers at full width: one step
+               in bf16 against the same step in float32 on the same values
+               (loss within 1e-2 relative, grad norm 5e-2); that bf16 state
+               (parameters and moments) through ``save_async`` and
+               ``restore`` under build/ (every leaf torch.equal, write and
+               read seconds), and a ``FaultTolerantRunner`` of 4 steps,
+               checkpointing every 2, with a failure injected after step 3,
+               which must replay step 3 from the step-2 checkpoint and end
+               torch.equal to the uninterrupted run.  No kernel runs here: the training
+               path is plain PyTorch, as the reference's reaches no Pallas
+               kernel.
+
 Phase 6 also holds TimeWarp (B6), which no path of either package reaches,
 equal to its plain version through its entry point, on every vertex's
 lifespan of the main graph, its 16 bucket edges and the per-vertex bucket
@@ -213,6 +246,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1097,9 +1131,13 @@ def warp_entries(graph, jobs) -> list:
     bedges = E.bucket_edges_for(graph, WARP_BUCKETS, dev).to(torch.int32)
     if tuple(counts.shape) != (V, WARP_BUCKETS):
         raise AssertionError(f"kernels: bucket state {tuple(counts.shape)} != {(V, WARP_BUCKETS)}")
+    # the overlap mask, built once: the library call is the product alone,
+    # a lower bound for any PyTorch form (none computes the mask in one call)
+    mask = (ivl[:, 0:1] < bedges[1:][None, :]) & (bedges[:-1][None, :] < ivl[:, 1:2])
     entries = []
     for dtype, tag in ((torch.float32, ""), (torch.bfloat16, ",bf16")):
         c = counts.to(dtype)
+        maskd = mask.to(dtype)
         IW.reset_launches()           # its entry point, called once
         got = IW.interval_warp(c, ivl, bedges)
         torch.cuda.synchronize()
@@ -1110,7 +1148,9 @@ def warp_entries(graph, jobs) -> list:
         n = c.numel()
         e = model_entry("interval_warp", f"B={WARP_BUCKETS},V={V}{tag}",
                         lambda c=c: IW.interval_warp(c, ivl, bedges),
-                        lambda c=c: IW.interval_warp_plain(c, ivl, bedges), None,
+                        lambda c=c: IW.interval_warp_plain(c, ivl, bedges),
+                        {"torch.mul(counts, mask), the mask precomputed":
+                         lambda c=c, m=maskd: torch.mul(c, m)},
                         2.0 * n * c.element_size() + 4.0 * (2 * V + WARP_BUCKETS + 1), 3.0 * n,
                         F32_FLOP_PER_S, 0.0, 0.0, launches)
         e.update(template=job[0], nonzero_in=int((c != 0).sum()), nonzero_out=kept)
@@ -1118,6 +1158,7 @@ def warp_entries(graph, jobs) -> list:
             f"non-zero counts in, {kept} out; equal to the plain version (NaN and signs of "
             f"zero included)")
         entries.append(e)
+        del maskd
     return entries
 
 
@@ -1125,7 +1166,7 @@ def warp_entries(graph, jobs) -> list:
 # the partitioned executor on the main graph
 # =========================================================================
 PART_WORKERS = (4, 8)
-PART_REPEATS = 5              # timed calls a job (median)
+PART_REPEATS = {4: 3, 8: 1}   # timed calls a job (median; 5 at both until the train phase came)
 PART_PROFILED = ("Q4", "agg-min-2hop")
 HOP_KERNELS = ("fused_hop_cols", "fused_hop_interval", "scatter_cols")
 
@@ -1185,11 +1226,12 @@ def part_job(graph, job, W: int, impl: str = "cuda"):
 def phase_partitioned(graph, jobs, main_rows) -> tuple:
     """The partitioned executor (``core/engine_partitioned.py``) at W = 4
     and 8 on the main graph: every main-path job through
-    ``execute_batch_out(impl='cuda')``, latency (median of 5 CUDA-event
-    timings) beside the main phase's, peak and resident memory, answers held
-    to the main path's impl='cuda' (and at W = 4 to the partitioned
-    impl='torch'), B1-B3 launched exactly once per kernel-lowered hop; then
-    ``measure_supersteps`` and the B1-B3 kernel lines of each W.
+    ``execute_batch_out(impl='cuda')``, latency (median of ``PART_REPEATS[W]``
+    CUDA-event timings) beside the main phase's, peak and resident memory,
+    answers held to the main path's impl='cuda' (and at W = 4 to the
+    partitioned impl='torch'), B1-B3 launched exactly once per kernel-lowered
+    hop; then, at W = 4, ``measure_supersteps``, and the B1-B3 kernel lines
+    of each W.
     Returns (report, kernel lines)."""
     from repro_torch.core import engine_partitioned as EP
     from repro_torch.kernels import hop_scatter as HK
@@ -1222,7 +1264,7 @@ def phase_partitioned(graph, jobs, main_rows) -> tuple:
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             times, per_call = [], []
-            for _ in range(PART_REPEATS):
+            for _ in range(PART_REPEATS[W]):
                 out = None
                 ev0, ev1 = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
@@ -1271,7 +1313,7 @@ def phase_partitioned(graph, jobs, main_rows) -> tuple:
             raise AssertionError(f"partitioned W={W}: never launched {missing}")
         log(f"partitioned: W={W} launches over the path: {launches}")
         prof = {}
-        for name in PART_PROFILED:
+        for name in PART_PROFILED if W == PART_WORKERS[0] else ():
             job = next(jb for jb in jobs if jb[0] == name and jb[1] == 0)
             p = EP.measure_supersteps(graph, job[3][0], n_workers=W, mode=0, repeats=3,
                                       device="cuda")
@@ -1377,14 +1419,15 @@ def timed_flush(sched, wl, what: str) -> dict:
 
 
 def check_groups(graph, sched, wl, counts, what: str, keep: list | None = None,
-                 ref_chunk: int | None = None) -> dict:
+                 ref_chunk: int | None = None, reference: bool = True) -> dict:
     """Serve ``wl`` once more with the outputs kept, and hold every group's
     answer against ``execute_batch_out`` at the group's split on the plain
     lowering, on the card (bit-equal below 2^24, rtol 1e-6 at or above,
     counted); the counts must equal the timed flush's.  ``keep`` receives
     the served results; ``ref_chunk`` runs the plain lowering on that many
     of a group's queries at a time (its per-edge state is Q times the
-    graph's)."""
+    graph's).  ``reference=False`` leaves out the plain lowering (the
+    flush and its counts are still checked)."""
     from repro_torch.core import engine as E
 
     sched.keep_outputs = True
@@ -1396,6 +1439,8 @@ def check_groups(graph, sched, wl, counts, what: str, keep: list | None = None,
     if [r.count for r in res] != counts:
         raise AssertionError(f"serve {what}: counts moved between two flushes")
     errs = dict(max_abs_err=0.0, n_ge_2_24=0, n_groups=0)
+    if not reference:
+        return errs
     for d in sched.last_dispatches:
         step = ref_chunk or len(d.indices)
         for lo in range(0, len(d.indices), step):
@@ -1588,7 +1633,8 @@ def phase_serve(graph, served: dict) -> dict:
 # =========================================================================
 # live graphs: the event log, epochs and base+delta serving on the main graph
 # =========================================================================
-LIVE_EPOCHS = 3               # the CLI's --epochs
+LIVE_EPOCHS = 2               # the CLI's --epochs (3 until the train phase came)
+LIVE_TORCH_EPOCHS = (1, LIVE_EPOCHS)   # epochs held to impl='torch': every delta epoch
 LIVE_WORKERS = 4              # the partition-hint drains' workers
 LIVE_WAL = ROOT / "build" / "live.wal"
 LIVE_CLI = ["--persons", "1000", "--live", "--wal", str(LIVE_WAL), "--holdout", "64",
@@ -1649,15 +1695,17 @@ def launches_since(mark: dict) -> dict:
     return {k: HK.LAUNCHES[k] - mark[k] for k in HOP_KERNELS}
 
 
-def live_drain(sched, wl, graph, mode: int, what: str, ref_chunk: int | None = None) -> tuple:
+def live_drain(sched, wl, graph, mode: int, what: str, ref_chunk: int | None = None,
+               reference: bool = True) -> tuple:
     """One mode's drains at a pinned epoch: a first flush (new executables
     are built and run once untimed), a steady flush timed by
     ``timed_flush`` whose kernel launches must equal the dispatches'
     prediction, and the check flush (``check_groups``: every group equal to
     impl='torch' on the epoch's merged graph).  Returns (report, the check
-    flush's results); the report's ``delta`` holds (the group is ETR-free,
-    it ran on the delta path) per steady dispatch, ``first`` (delta, the
-    executable was cached) per first dispatch."""
+    flush's results; without ``reference`` the check flush's counts only);
+    the report's ``delta`` holds (the group is ETR-free, it ran on the delta
+    path) per steady dispatch, ``first`` (delta, the executable was cached)
+    per first dispatch."""
     from repro_torch.kernels import hop_scatter as HK
 
     sched.mode = mode
@@ -1674,7 +1722,7 @@ def live_drain(sched, wl, graph, mode: int, what: str, ref_chunk: int | None = N
     out["first"] = first
     res = []
     out["check"] = check_groups(graph, sched, wl, out.pop("counts"), what, keep=res,
-                                ref_chunk=ref_chunk)
+                                ref_chunk=ref_chunk, reference=reference)
     return out, res
 
 
@@ -1859,7 +1907,8 @@ def phase_live(graph, served: dict) -> dict:
             del tracer, tb
         res = {}
         for m, mode in (("bucket", E.MODE_BUCKET), ("static", E.MODE_STATIC)):
-            row[m], res[m] = live_drain(sched, wl, ep.graph, mode, f"live e{ep.id} {m}")
+            row[m], res[m] = live_drain(sched, wl, ep.graph, mode, f"live e{ep.id} {m}",
+                                        reference=ep.id in LIVE_TORCH_EPOCHS)
             # ETR-free groups, and only they, run on the delta path of a
             # live epoch; the delta executables are cache hits after the
             # window's first epoch
@@ -2747,6 +2796,207 @@ def phase_gnn() -> tuple:
     return info, entries
 
 
+# =========================================================================
+# training: MiniCPM-2B at full width
+# =========================================================================
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_STEPS = 4               # timed, after one warm-up step
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-2, 5e-2   # two layers: bf16 against float32
+TRAIN_CKPT = ROOT / "build" / "chip_train_ckpt"     # not launch/train.py's --ckpt-dir
+# the failure lands after step 3, off the step-2 checkpoint: step 3 is replayed
+TRAIN_RUNNER = dict(batch=1, seq=256, steps=4, ckpt_every=2, fail_at=3)
+
+
+def train_smoke_check() -> dict:
+    """minicpm-2b SMOKE (float32): the loss and every gradient leaf of one
+    ``value_and_grad`` on the card against the port on the CPU, which the
+    CPU tests hold to the JAX package; atol 2e-5."""
+    from repro_torch.configs.minicpm_2b import SMOKE
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models import transformer as TR
+    from repro_torch.training import tree as T
+    from repro_torch.training.train_loop import value_and_grad
+
+    params = TR.init_params(SMOKE, torch.Generator().manual_seed(SEED), device="cpu")
+    batch = synthetic_lm_batches(SMOKE.vocab, 4, 64, 1, seed=SEED, device="cpu")[0]
+    loss_fn = lambda p, b: TR.loss_fn(SMOKE, p, b)
+    l_card, g_card = value_and_grad(loss_fn, tree_map(torch.Tensor.cuda, params),
+                                    tree_map(torch.Tensor.cuda, batch))
+    l_cpu, g_cpu = value_and_grad(loss_fn, params, batch)
+    err = close(l_card.cpu(), l_cpu, 2e-5, 0.0, "train smoke loss")
+    for (path, a), b in zip(T.leaves_with_paths(g_card), T.leaves(g_cpu)):
+        err = max(err, close(a.cpu(), b, 2e-5, 0.0, f"train smoke gradient {path}"))
+    log(f"train: SMOKE on the card equals the CPU port: loss and {len(T.leaves(g_cpu))} "
+        f"gradient leaves, max_abs_err {err:.3g} (atol 2e-5)")
+    return dict(max_abs_err=err)
+
+
+def timed_step(step, params, state, batch) -> tuple:
+    """One train step timed by CUDA events, with the memory resident before
+    it and its peak: (params, state, row)."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    params, state, m = step(params, state, batch)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b)
+    tokens = batch["tokens"].numel()
+    row = dict(ms=ms, tokens_per_s=tokens / ms * 1e3, loss=float(m["loss"]),
+               grad_norm=float(m["grad_norm"]), lr=float(m["lr"]),
+               peak_bytes=torch.cuda.max_memory_allocated(), resident_bytes=resident)
+    return params, state, row
+
+
+def phase_train() -> dict:
+    """MiniCPM-2B training on the card (``training/``, ``launch/train.py``'s
+    data and schedule); see the module docstring's phase 10."""
+    from repro_torch.configs import minicpm_2b as MC
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models import transformer as TR
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import tree as T
+    from repro_torch.training.fault import FaultTolerantRunner
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.train_loop import make_train_step
+
+    t_phase = time.perf_counter()
+    info = dict(smoke=train_smoke_check())
+    cfg, dev = MC.CONFIG, torch.device("cuda")
+    n_steps = 1 + TRAIN_STEPS
+    opt_cfg = MC.get_arch().meta["opt"]       # the published WSD schedule, 100 warm-up steps
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = TR.init_params(cfg, gen, device=dev)
+    state = init_state(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in T.leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"train: {n_params} parameters, config says {cfg.param_count()}")
+    state_gib = sum(t.numel() * t.element_size() for t in T.leaves((params, state))) / 2**30
+    batch = synthetic_lm_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, 1, seed=SEED, device=dev)[0]
+    info.update(config=cfg.name, params=n_params, state_gib=state_gib, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, remat=cfg.remat, init_s=time.perf_counter() - t0,
+                opt=dataclasses.asdict(opt_cfg), steps=[])
+    log(f"train: minicpm-2b {n_params / 1e9:.3f} B params bf16 at full width, remat "
+        f"{cfg.remat}; params and moments {state_gib:.2f} GiB; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens (synthetic_lm_batches' first, every step); AdamW, WSD "
+        f"warm-up {opt_cfg.warmup_steps} steps to lr {opt_cfg.lr}; init {info['init_s']:.1f}s")
+    loss_fn = lambda p, b: TR.loss_fn(cfg, p, b)
+    step1 = make_train_step(loss_fn, opt_cfg)                 # in place (donated)
+    step2 = make_train_step(loss_fn, opt_cfg, microbatches=2)
+    for i in range(n_steps + 1):
+        mb = 2 if i == n_steps else 1       # the last: two microbatches
+        params, state, row = timed_step(step1 if mb == 1 else step2, params, state, batch)
+        row.update(step=i + 1, microbatches=mb, first_call=i == 0)
+        info["steps"].append(row)
+        log(f"train: minicpm-2b step {i + 1}{' (first call)' if i == 0 else ''} microbatches "
+            f"{mb}: {row['ms']:.1f} ms, {row['tokens_per_s']:.0f} tokens/s, loss "
+            f"{row['loss']:.4f}, grad_norm {row['grad_norm']:.4f}, lr {row['lr']:.3e}, "
+            f"peak_GiB={row['peak_bytes'] / 2**30:.3f} "
+            f"resident_GiB={row['resident_bytes'] / 2**30:.3f}")
+    info["profile"] = traced(lambda: step1(params, state, batch), top=10)
+    log_trace("profile: train step minicpm-2b", info["profile"])
+    rows = info["steps"]
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError(f"train: non-finite loss or grad norm: {rows}")
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        raise AssertionError(f"train: loss {rows[0]['loss']} -> {rows[-1]['loss']}: not falling")
+    del params, state
+    free_memory()
+
+    # ---- two layers at full width: bf16 against float32 on the same values
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cfg32 = dataclasses.replace(cfg2, dtype=torch.float32)
+    p_bf = tree_map(lambda t: t.to(torch.bfloat16), TR.init_params(cfg32, gen, device=dev))
+    p32 = tree_map(lambda t: t.float(), p_bf)
+    bf_step = make_train_step(lambda p, b: TR.loss_fn(cfg2, p, b), opt_cfg)
+    p_bf, s_bf, r_bf = timed_step(bf_step, p_bf, init_state(p_bf), batch)
+    p32, s32, r32 = timed_step(make_train_step(lambda p, b: TR.loss_fn(cfg32, p, b), opt_cfg),
+                               p32, init_state(p32), batch)
+    del p32, s32
+    loss_rel = abs(r_bf["loss"] - r32["loss"]) / abs(r32["loss"])
+    gn_rel = abs(r_bf["grad_norm"] - r32["grad_norm"]) / abs(r32["grad_norm"])
+    n2 = sum(t.numel() for t in T.leaves(p_bf))
+    info["two_layers"] = dict(params=n2, bf16=r_bf, float32=r32, loss_rel=loss_rel,
+                              grad_norm_rel=gn_rel)
+    log(f"train: two layers at full width ({n2 / 1e6:.1f} M params), one step: bf16 loss "
+        f"{r_bf['loss']:.5f} grad_norm {r_bf['grad_norm']:.5f} ({r_bf['ms']:.1f} ms), float32 "
+        f"loss {r32['loss']:.5f} grad_norm {r32['grad_norm']:.5f} ({r32['ms']:.1f} ms): "
+        f"relative {loss_rel:.3g} (bound {TRAIN_LOSS_RTOL}), {gn_rel:.3g} "
+        f"(bound {TRAIN_GNORM_RTOL})")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gn_rel <= TRAIN_GNORM_RTOL):
+        raise AssertionError("train: the bf16 step is outside its bounds of float32")
+
+    # ---- checkpoint round trip of the two-layer bf16 state, then fault recovery
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    state2 = (p_bf, s_bf)
+    ck_gib = sum(t.numel() * t.element_size() for t in T.leaves(state2)) / 2**30
+    t0 = time.perf_counter()
+    CK.save_async(state2, 1, str(TRAIN_CKPT / "roundtrip"))
+    CK.wait_pending()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, got_step = CK.restore(state2, str(TRAIN_CKPT / "roundtrip"))
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    for (path, a), b in zip(T.leaves_with_paths(got), T.leaves(state2)):
+        if got_step != 1 or a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"train: checkpoint leaf {path} changed in the round trip")
+    del got
+    rc = TRAIN_RUNNER
+    rbatches = synthetic_lm_batches(cfg.vocab, rc["batch"], rc["seq"], rc["steps"], seed=SEED,
+                                    device=dev)
+
+    calls = [0]
+
+    def step_fn(st, b):
+        calls[0] += 1
+        p, s, m = bf_step(st[0], st[1], b)
+        return (p, s), dict(loss=float(m["loss"]))
+
+    runs = {}
+    for name, fail in (("uninterrupted", None),
+                       ("one failure", {rc["fail_at"]: RuntimeError("injected failure")})):
+        t0 = time.perf_counter()
+        calls[0] = 0
+        r = FaultTolerantRunner(step_fn, T.tree_map(torch.clone, state2),
+                                str(TRAIN_CKPT / name.replace(" ", "_")),
+                                ckpt_every=rc["ckpt_every"])
+        r.run(rbatches, fail_at=fail)
+        runs[name] = (r, time.perf_counter() - t0, calls[0] - r.step)   # replayed steps
+    (ra, sa, replay_a), (rb, sb, replay_b) = runs["uninterrupted"], runs["one failure"]
+    if rb.recoveries != 1 or ra.recoveries != 0 or not ra.step == rb.step == rc["steps"]:
+        raise AssertionError(f"train: runner recoveries {ra.recoveries}/{rb.recoveries}, "
+                             f"steps {ra.step}/{rb.step}")
+    if replay_a != 0 or replay_b < 1:
+        raise AssertionError(f"train: the runner replayed {replay_b} steps after the failure "
+                             f"({replay_a} uninterrupted): replay is not exercised")
+    for (path, a), b in zip(T.leaves_with_paths(rb.state), T.leaves(ra.state)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"train: after recovery {path} differs from the "
+                                 "uninterrupted run")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    info["checkpoint"] = dict(gib=ck_gib, write_s=write_s, read_s=read_s,
+                              runner=dict(rc, uninterrupted_s=sa, one_failure_s=sb,
+                                          replayed_steps=replay_b))
+    log(f"train: checkpoint of the two-layer state ({ck_gib:.2f} GiB, "
+        f"{len(T.leaves(state2))} leaves): save_async + wait {write_s:.2f}s, restore "
+        f"{read_s:.2f}s, every leaf torch.equal; FaultTolerantRunner {rc['steps']} steps "
+        f"(batch {rc['batch']} x {rc['seq']}, checkpoint every {rc['ckpt_every']}) with a "
+        f"failure injected after step {rc['fail_at']}: 1 recovery, {replay_b} step(s) "
+        f"replayed, parameters and moments torch.equal to the uninterrupted run "
+        f"({sa:.1f}s / {sb:.1f}s)")
+    del state2, p_bf, s_bf, ra, rb, runs
+    free_memory()
+    info["wall_s"] = time.perf_counter() - t_phase
+    log(f"train: phase {info['wall_s']:.1f}s")
+    return info
+
+
 def main(argv=None) -> int:
     warnings.filterwarnings("ignore", message="Sparse")
     warnings.filterwarnings("ignore", message="Warning: Profiler clears events")
@@ -2785,6 +3035,8 @@ def main(argv=None) -> int:
     REPORT["dlrm"], dlrm_kernels = phase_dlrm()
     REPORT["gnn"], gnn_kernels = phase_gnn()
     kernels += lm_kernels + dlrm_kernels + gnn_kernels
+    free_memory()
+    REPORT["train"] = phase_train()
     REPORT["kernels"] = kernels
     REPORT["wall_s"] = time.perf_counter() - t_start
     report = Path(args.report)

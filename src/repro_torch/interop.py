@@ -15,6 +15,13 @@ parameters the reference package runs on:
                          transpose; cast to ``cfg.dtype``)
   gnn_params_from_arrays(arch, tree)
                          the same for a GNN of ``models/gnn.py`` (float32)
+  optimizer_state_from_arrays(tree)
+                         the port's AdamW state (``training/optimizer.py``)
+                         from the reference's ``init_state`` /
+                         ``apply_updates`` state as numpy arrays: float32
+                         moments, an int32 step
+  optimizer_state_to_arrays(state)
+                         its inverse, numpy arrays in the reference's tree
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from .core import query as Q
 from .core.graph import PropColumn, TemporalGraph
 from .graphdata.loader import GraphBuilder
 from .kernels.common import resolve_device
+from .training.tree import tree_map
 
 
 def _column(c) -> PropColumn:
@@ -145,3 +153,24 @@ def gnn_params_from_arrays(arch: str, tree: Mapping,
         return _tensor(t, torch.float32, dev)
 
     return conv(tree)
+
+
+def optimizer_state_from_arrays(tree: Mapping,
+                                device: Optional[Union[str, torch.device]] = None):
+    """The port's AdamW state from the reference's ``dict(mu, nu, step)``
+    as numpy arrays: ``mu`` and ``nu`` trees of float32 tensors (the
+    parameters' structure), ``step`` an int32 0-dim tensor."""
+    if set(tree) != {"mu", "nu", "step"}:
+        raise ValueError(f"optimizer state has {sorted(tree)}, want ['mu', 'nu', 'step']")
+    dev = resolve_device(device)
+    moments = lambda t: tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev), t)
+    return dict(mu=moments(tree["mu"]), nu=moments(tree["nu"]),
+                step=torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32, device=dev))
+
+
+def optimizer_state_to_arrays(state: Mapping) -> dict:
+    """``optimizer_state_from_arrays``'s inverse: numpy arrays (float32
+    moments, an int32 0-dim step) in the reference's tree."""
+    host = lambda t: tree_map(lambda x: x.detach().cpu().numpy(), t)
+    return dict(mu=host(state["mu"]), nu=host(state["nu"]),
+                step=np.asarray(int(state["step"]), np.int32))

@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from .. import build
-from ..common import check_impl, lane_group
+from ..common import lane_group, launches_kernel
 from .ref import bucket_scatter_plain
 
 LAUNCHES = {"bucket_scatter": 0}
@@ -82,7 +82,7 @@ def bucket_scatter(contrib: torch.Tensor, seg_ids: torch.Tensor, num_segments: i
     [num_segments, C]; see ``ref.bucket_scatter_plain``.  ``layout`` (from
     ``build_layout``) saves rebuilding the pointer for every call over the
     same edges."""
-    if check_impl(impl) == "torch" or not contrib.is_cuda:
+    if not launches_kernel(impl, "bucket_scatter", contrib):
         return bucket_scatter_plain(contrib, seg_ids, num_segments)
     dtype = _DTYPES.get(contrib.dtype)
     if dtype is None or contrib.dim() != 2 or not contrib.is_contiguous():

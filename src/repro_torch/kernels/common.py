@@ -14,6 +14,12 @@ The port's counterpart of the reference package's ``kernels/common.py``:
           on the CPU.  A kernel wrapper given CPU tensors runs its plain
           version (that is how the CPU tests reach the fused path); given CUDA
           tensors it launches its kernel or raises.
+
+  grad    a kernel has no backward: it writes its output through a raw
+          pointer, so the output has no ``grad_fn``.  A wrapper asked for the
+          kernel (``launches_kernel``) while grad mode is on and an input
+          requires grad raises, on either device, rather than drop the
+          gradient; ``impl='torch'`` differentiates.
 """
 from __future__ import annotations
 
@@ -34,6 +40,20 @@ def check_impl(impl: str) -> str:
 def use_kernels(impl: str) -> bool:
     """True for the fused-kernel lowering (the reference's ``use_pallas``)."""
     return check_impl(impl) == "cuda"
+
+
+def launches_kernel(impl: str, what: str, *inputs: Optional[torch.Tensor]) -> bool:
+    """True where a wrapper launches its kernel: ``impl`` 'cuda' and the
+    first input on the card.  Raises ``RuntimeError`` where ``impl`` is
+    'cuda', grad mode is on and an input requires grad, on either device."""
+    if check_impl(impl) == "torch":
+        return False
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{what}: impl='cuda' runs a kernel with no backward, so the gradient of an "
+            "input that requires grad would be dropped; call it with impl='torch' to "
+            "differentiate, or under torch.no_grad()")
+    return inputs[0].is_cuda
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 import torch
 
 from .. import build
-from ..common import check_impl
+from ..common import launches_kernel
 from .ref import embedding_bag_plain, embedding_bags_plain
 
 LAUNCHES = {"embedding_bag": 0}
@@ -58,7 +58,7 @@ def embedding_bags(tables: Sequence[torch.Tensor], indices: torch.Tensor, mode: 
     contiguous, such as a slice of a larger buffer); see
     ``ref.embedding_bags_plain``."""
     _check_mode(mode)
-    if check_impl(impl) == "torch" or not tables[0].is_cuda:
+    if not launches_kernel(impl, "embedding_bags", *tables):
         got = embedding_bags_plain(tables, indices, mode)
         return got if out is None else out.copy_(got)
     dev = tables[0].device
@@ -93,7 +93,7 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, mode: str = "sum",
     """Sum or mean of ``table`` rows per bag; see ``ref.embedding_bag_plain``.
     On the card, ``embedding_bags``'s launch with one table."""
     _check_mode(mode)
-    if check_impl(impl) == "torch" or not table.is_cuda:
+    if not launches_kernel(impl, "embedding_bag", table):
         return embedding_bag_plain(table, indices, mode)
     dev = table.device
     if (indices.device != dev or indices.dtype != torch.int32 or indices.dim() != 2

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import build
-from ..common import check_impl
+from ..common import launches_kernel
 from .ref import attention_plain, visible_rows
 
 ROUTES = ("tc", "decode", "simt")
@@ -127,7 +127,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B, Hq, Sq, D]; k, v [B, Hkv, Sk, D] (Sk >= Sq for decode) →
     [B, Hq, Sq, D] in ``q.dtype``; see ``ref.attention_plain``.  Every
     decode step calls this once a layer, so its host time is kept short."""
-    if check_impl(impl) == "torch" or not q.is_cuda:
+    if not launches_kernel(impl, "flash_attention", q, k, v):
         return attention_plain(q, k, v, causal=causal, window=window,
                                sm_scale=sm_scale, q_offset=q_offset)
     dev, dtype = q.device, q.dtype

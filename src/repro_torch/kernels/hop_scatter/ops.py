@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from .. import build
-from ..common import WARP, lane_group  # noqa: F401  (lane_group: B1/B3's edge slots)
+from ..common import WARP, lane_group, launches_kernel  # noqa: F401  (lane_group: B1/B3's edge slots)
 
 LAUNCHES = {"fused_hop_cols": 0, "fused_hop_interval": 0, "scatter_cols": 0,
             "scatter_extremum": 0}
@@ -287,7 +287,7 @@ def _source_table(state, sq, mch):
 def fused_hop_cols(state, src, w, ptr, mch=None, neutral: float = 0.0,
                    op_is_min: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused static/bucket hop; see ``fused_hop_cols_plain``."""
-    if not state.is_cuda:
+    if not launches_kernel("cuda", "fused_hop_cols", state, w, mch):
         return fused_hop_cols_plain(state, src, w, ptr, mch, neutral, op_is_min)
     dev = state.device
     Qn, N, C = state.shape
@@ -319,7 +319,7 @@ def fused_hop_cols(state, src, w, ptr, mch=None, neutral: float = 0.0,
 def fused_hop_interval(state, src, w, sb, eb, ptr, mch=None, neutral: float = 0.0,
                        op_is_min: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused interval hop; see ``fused_hop_interval_plain``."""
-    if not state.is_cuda:
+    if not launches_kernel("cuda", "fused_hop_interval", state, w, mch):
         return fused_hop_interval_plain(state, src, w, sb, eb, ptr, mch, neutral,
                                         op_is_min)
     dev = state.device
@@ -358,7 +358,7 @@ def fused_hop_interval(state, src, w, sb, eb, ptr, mch=None, neutral: float = 0.
 
 def scatter_cols(contrib, ptr) -> torch.Tensor:
     """Delivery of per-edge contributions; see ``scatter_cols_plain``."""
-    if not contrib.is_cuda:
+    if not launches_kernel("cuda", "scatter_cols", contrib):
         return scatter_cols_plain(contrib, ptr)
     dev = contrib.device
     Qn, E = contrib.shape[:2]
@@ -388,7 +388,7 @@ def scatter_extremum(m_e, alive, ptr, neutral: float, op_is_min: bool) -> torch.
     each tile's first destination (into a scratch of ``extremum_tiles(E) + 1``
     ints) and seeds the runs that cross a tile's edge with ``neutral``, then
     the tiles."""
-    if not m_e.is_cuda:
+    if not launches_kernel("cuda", "scatter_extremum", m_e):
         return scatter_extremum_plain(m_e, alive, ptr, neutral, op_is_min)
     dev = m_e.device
     Qn, E = m_e.shape

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from ..common import check_impl
+from ..common import launches_kernel
 from .ref import interval_warp_plain
 
 LAUNCHES = {"interval_warp": 0}
@@ -31,7 +31,7 @@ def interval_warp(counts: torch.Tensor, ivl: torch.Tensor, bedges: torch.Tensor,
                   impl: str = "cuda") -> torch.Tensor:
     """counts [N, B] times the mask of the buckets each row's interval
     overlaps; see ``ref.interval_warp_plain``."""
-    if check_impl(impl) == "torch" or not counts.is_cuda:
+    if not launches_kernel(impl, "interval_warp", counts):
         return interval_warp_plain(counts, ivl, bedges)
     dev = counts.device
     if counts.dtype not in _DTYPES or counts.dim() != 2 or not counts.is_contiguous():

@@ -1,1 +1,2 @@
-"""Entry points users start: ``python -m repro_torch.launch.query``."""
+"""Entry points users start: ``python -m repro_torch.launch.query`` and
+``python -m repro_torch.launch.train``."""

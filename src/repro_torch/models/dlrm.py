@@ -5,6 +5,8 @@ sharding).  The reference looks up each sparse feature's table on its own;
 here one ``kernels.embedding_bags`` call (one launch) looks up all of them,
 straight into the interaction's input.  ``retrieval_score`` scores one query
 against N candidate embeddings as one matrix-vector product and a top-k.
+``loss_fn`` is the training loss; its gradient runs the plain version
+(``impl='torch'``), as the reference's runs ``'xla'``.
 """
 from __future__ import annotations
 
@@ -91,6 +93,16 @@ def forward(cfg: DLRMCfg, params: Params, dense: torch.Tensor,
     iu, ju = torch.triu_indices(fdim, fdim, offset=1, device=feats.device)
     z = torch.cat([bot, inter[:, iu, ju]], dim=-1)
     return mlp_apply(params["top"], z)[:, 0].float()
+
+
+def loss_fn(cfg: DLRMCfg, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against ``batch['label']``,
+    in the reference's stable form max(x, 0) − x·y + log1p(e^−|x|).  Its
+    gradient needs ``impl='torch'``: the kernel has no backward."""
+    logits = forward(cfg, params, batch["dense"], batch["sparse"])
+    y = batch["label"].float()
+    return torch.mean(torch.clamp_min(logits, 0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def serve_score(cfg: DLRMCfg, params: Params, dense: torch.Tensor,

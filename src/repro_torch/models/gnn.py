@@ -295,8 +295,9 @@ def schnet_apply(cfg: SchNetCfg, params, g: GraphBatch) -> torch.Tensor:
 
 # ------------------------------------------------------------- loss wrappers
 def gnn_loss(arch: str, cfg, params, g: GraphBatch) -> torch.Tensor:
-    """The training loss's value (mean squared error against the targets);
-    its gradient is not ported yet."""
+    """The training loss: mean squared error of the predictions against the
+    targets (against 0 where a graph-level head meets node targets).  Its
+    gradient needs ``cfg.impl == 'torch'``: the kernel has no backward."""
     if arch == "pna":
         pred = pna_apply(cfg, params, g)
     elif arch == "egnn":

@@ -1,5 +1,5 @@
-"""Shared layers: RMS and layer norm, rotary embedding, dense init and the
-MLP stack.
+"""Shared layers: RMS and layer norm, rotary embedding, dense init, the
+MLP stack and the token cross-entropy.
 
 The counterparts of the reference's ``models/layers.py`` (no sharding
 helpers: the port runs on one card).  Weights keep the reference's
@@ -88,3 +88,12 @@ def mlp_apply(params: List[Dict], x: torch.Tensor,
         if i < len(params) - 1 or final_act:
             x = act(x)
     return x
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross-entropy of ``logits`` [..., V] against integer
+    ``labels`` [...], in float32 through logsumexp, as the reference."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - ll).mean()

@@ -20,10 +20,12 @@ from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import check_impl, resolve_device
 from ..kernels.flash_attention import ops as FA
-from .layers import apply_rope, dense_init, rms_norm
+from .layers import apply_rope, cross_entropy_loss, dense_init, rms_norm
 
 FULL_WINDOW = 1 << 30
 
@@ -50,6 +52,9 @@ class TransformerCfg:
     dtype: torch.dtype = torch.bfloat16
     kv_cache_quant: bool = False           # not ported: ROADMAP A11
     impl: str = "cuda"                     # 'cuda' (the kernel) | 'torch' (plain)
+    remat: bool = True                     # training: recompute each layer in backward
+    remat_inner: bool = False              # training: recompute each attention chunk
+    gqa_native: bool = False               # training: grouped-einsum GQA, no repeated KV
 
     def __post_init__(self):
         if self.moe is not None:
@@ -171,6 +176,83 @@ def forward(cfg: TransformerCfg, params: Params, tokens: torch.Tensor) -> torch.
         x = _mlp(cfg, lp, _attn_out(cfg, lp, x, o))
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x @ _head(params).to(cfg.dtype)
+
+
+# ----------------------------------------------------------------- training
+def _chunked_attention(q, k, v, window: int, Dh: int, chunk: int = 512,
+                       native: bool = False, remat_chunks: bool = False) -> torch.Tensor:
+    """Causal + sliding-window GQA attention in float32, chunked over query
+    blocks so the score transient is [B, H, chunk, S]: the reference's
+    ``_chunked_attention``.  q [B, Hq, S, Dh]; k, v [B, Hkv, S, Dh] →
+    float32 [B, Hq, S, Dh].  ``native`` consumes the KV heads with grouped
+    products (no group× repeat); ``remat_chunks`` recomputes each chunk in
+    the backward pass."""
+    B, Hq, S, _ = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    if native:
+        kf, vf = k.float()[:, :, None], v.float()[:, :, None]          # [B, Hkv, 1, S, D]
+    else:
+        kf = k.repeat_interleave(group, dim=1).float()
+        vf = v.repeat_interleave(group, dim=1).float()
+    chunk = min(chunk, S)
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    if pad:
+        q = F.pad(q, (0, 0, 0, pad))
+    kpos = torch.arange(S, device=q.device)
+
+    def one(i: int, qb):
+        qpos = i * chunk + torch.arange(chunk, device=q.device)
+        mask = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] > qpos[:, None] - window)
+        s = qb.float() @ kf.transpose(-1, -2)
+        s = torch.where(mask, s * (Dh ** -0.5), -1e30)
+        return torch.softmax(s, dim=-1) @ vf
+
+    outs = []
+    for i in range(n_chunks):
+        qb = q[:, :, i * chunk:(i + 1) * chunk]
+        if native:
+            qb = qb.reshape(B, Hkv, group, chunk, qb.shape[-1])
+        o = (checkpoint(one, i, qb, use_reentrant=False, preserve_rng_state=False)
+             if remat_chunks else one(i, qb))
+        outs.append(o.reshape(B, Hq, chunk, -1))
+    return torch.cat(outs, dim=2)[:, :, :S]
+
+
+def _train_layer(cfg: TransformerCfg, lp, x, positions, window: int):
+    q, k, v = _qkv(cfg, lp, x, positions)
+    o = _chunked_attention(q, k, v, window, cfg.d_head, native=cfg.gqa_native,
+                           remat_chunks=cfg.remat_inner)
+    return _mlp(cfg, lp, _attn_out(cfg, lp, x, o))
+
+
+def train_forward(cfg: TransformerCfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] → logits [B, S, V] in ``cfg.dtype`` through the
+    training path (the reference's scanned forward): chunked attention,
+    each layer recomputed in backward when ``cfg.remat``."""
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    # one unbind of each stacked weight: its backward stacks the layers'
+    # gradients once (indexing each layer would add a full-size zero tensor
+    # a layer)
+    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
+    for i, w in enumerate(cfg.layer_windows()):
+        lp = {k: v[i] for k, v in layers.items()}
+        if cfg.remat:
+            x = checkpoint(_train_layer, cfg, lp, x, positions, int(w),
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _train_layer(cfg, lp, x, positions, int(w))
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x @ _head(params).to(cfg.dtype)
+
+
+def loss_fn(cfg: TransformerCfg, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token-mean cross-entropy of ``train_forward`` on ``batch['tokens']``
+    against ``batch['labels']`` (float32 scalar)."""
+    return cross_entropy_loss(train_forward(cfg, params, batch["tokens"]), batch["labels"])
 
 
 # -------------------------------------------------------------------- serve
