@@ -31,8 +31,9 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                library_ms) is the median of 10 CUDA-event timings, each of
                one call started on an idle card (``time_ms``: the host's
                time to the launch included), on every kernel line.  Every
-               line also gives, for the kernel, its plain version and the
-               library call alike, ``*b2b_ms``, CUDA-event time per call over
+               line also gives, for the kernel and the library call (not the
+               plain version since the olmoe phase came), ``*b2b_ms``,
+               CUDA-event time per call over
                10 calls launched back to back (``b2b_ms``), ``*device_ms``,
                the traced device time of a call (``device_ms``), and
                ``*device_mean_ms``, the same trace read so that dropped
@@ -54,10 +55,11 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                set-up (partition and table seconds, v_max, e_max, h_max,
                edge cut, size imbalance, exchange volumes, the pad slots the
                kernels' flattened CSR leaves out); every main-path job
-               through ``execute_batch_out(impl='cuda')``, median of
-               PART_REPEATS[W] CUDA-event timings (3 at W = 4, 1 at W = 8;
-               5 at both until the train phase came) beside the main
-               phase's ms, peak beside
+               through ``execute_batch_out(impl='cuda')``, the median of
+               PART_REPEATS CUDA-event timings (1 at both W since the olmoe
+               phase came; 3 at W = 4 and 1 at W = 8 before it, 5 at both
+               until the train phase came) beside the main phase's ms, peak
+               beside
                resident memory; answers held to the main path's impl='cuda'
                (and at W = 4 to partitioned impl='torch'), bit-equal below
                2^24, rtol 1e-6 above (counted); every timed call must
@@ -168,6 +170,29 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                that form too: each is timed, and the faster in a single call
                is the line's library call.  The global prefill also gives
                the host's time to encode its three tensor maps.
+  7a. olmoe   OLMoE-1B-7B at full width (16 layers, 64 experts top-8,
+               6.82 B parameters in bf16, random weights from SEED, made on
+               the card): first its SMOKE variant on the card against the
+               port on the CPU, and ``transformer.top_k``'s tie order (equal
+               gates: the lower expert first) on the card; then the serve
+               path as in phase 7 (8 prompts of 2048 tokens, 31 greedy
+               ``decode_step``s; the MoE layers' capacity is 320 a row in
+               the prefill, 1 in decode), B7 counted: 16 x 32 launches, the
+               prefill's 16 through 'tc' and the 496 of decode through
+               'decode'; one traced prefill and decode step.  Then four runs
+               teacher-forced on the served tokens, their routing recorded
+               layer by layer (``RouteCapture``): impl='cuda' and 'torch' in
+               bf16, and both again in float32 (the bf16 weights cast up).
+               float32: logits within 1e-3 of each step's max |logit|, and
+               every token whose expert set differs between the two runs
+               explained by a root flip (a gate gap under ROUTE_TIE in the
+               'torch' run) or by an earlier one in its row (``route_flips``;
+               such rows are left out of the logit bound and counted).
+               bf16: the flips are counted; the logits are held within twice
+               the plain bf16 run's own distance from float32 until a token
+               routes differently, and reported after.  Then B7 against its
+               plain version on layer 0's prefill and last decode step call,
+               timed as in phase 7 (``flash_attention_*[olmoe,...]``).
   8. dlrm      DLRM-RM2 at full width (26 tables of 1,000,000 x 64 float32,
                random from SEED): SMOKE on the card against the CPU; then
                ``serve_score`` at batch 512 and 262,144 and
@@ -232,8 +257,8 @@ Exactness: counts are integers in float32, so a kernel equals its plain
 version bit for bit while magnitudes stay below 2^24; entries at or above
 2^24 (where a float32 sum depends on its order) are held to rtol 1e-6 and
 counted.  B7 is held to one bf16 rounding of its output (atol 1e-3, rtol
-2^-7) in bf16 and to atol = rtol = 2e-5 in float32, the LM as stated in
-phase 7, DLRM to rtol 1e-5, B5 to atol = rtol = 1e-4 (the reference's
+2^-7) in bf16 and to atol = rtol = 2e-5 in float32, the LMs as stated in
+phases 7 and 7a, DLRM to rtol 1e-5, B5 to atol = rtol = 1e-4 (the reference's
 sweep), B6 exactly (each stated where it is checked).  The last lines are the kernels'
 JSON line, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.  Details go to
@@ -862,10 +887,12 @@ TURNS = 20
 
 
 def timings(kern, plain, libraries: dict, per_call: dict | None = None) -> dict:
-    """A kernel line's times: for the kernel, its plain version and each
-    library call (``libraries``, {label: call}: single PyTorch calls that
-    compute the same function; may be empty), in that order, ``ms``
-    (``time_ms``), ``b2b_ms``, ``device_ms`` and ``device_mean_ms``.  With
+    """A kernel line's times: for the kernel and each library call
+    (``libraries``, {label: call}: single PyTorch calls that compute the
+    same function; may be empty) ``ms`` (``time_ms``), ``b2b_ms``,
+    ``device_ms`` and ``device_mean_ms``; for the plain version, timed
+    between them, ``plain_ms`` only (its other timers went to keep the script
+    inside its time limit when the olmoe phase came).  With
     several library calls each is kept under ``library_<label>_*`` and the
     line's ``library_*`` is the one fastest in a single call; ``library_call``
     names the call taken where it has a label other than "call".  Then ``turns_ms`` and ``library_turns_ms``: the
@@ -875,7 +902,7 @@ def timings(kern, plain, libraries: dict, per_call: dict | None = None) -> dict:
     t = {}
     for who, fn in (("", kern), ("plain_", plain),
                     *((f"library_{label}_", f) for label, f in libraries.items())):
-        for how, timer in TIMERS:
+        for how, timer in TIMERS[:1] if who == "plain_" else TIMERS:
             kw = dict(per_call=per_call) if who == "" and timer is device_mean_ms else {}
             t[who + how] = timer(fn, **kw)
     best = min(libraries, key=lambda label: t[f"library_{label}_ms"]) if libraries else None
@@ -899,8 +926,9 @@ def hop_entry(launches: dict, name, variant, kern, plain, library, nbytes, flops
     """One B1-B4 line: the kernel held to its plain version, timed by
     ``timings`` (``library``: one call or None), beside its bound.  Where
     ``launches_a_call`` is given, the kernel launches a call that its
-    ``device_mean_ms`` trace counted are kept as ``kernel_launches_a_call``
-    and must equal it."""
+    ``device_mean_ms`` trace counted (traced again, up to three times, while
+    the profiler keeps no device event) are kept as
+    ``kernel_launches_a_call`` and must equal it."""
     got = kern()
     want = plain()
     torch.cuda.synchronize()
@@ -915,6 +943,10 @@ def hop_entry(launches: dict, name, variant, kern, plain, library, nbytes, flops
     per_call = {} if launches_a_call is not None else None
     times = timings(kern, plain, {} if library is None else {"call": library}, per_call)
     if per_call is not None:
+        for _ in range(3):        # a trace that kept no device event is no reading
+            if per_call["launches"]:
+                break
+            times["device_mean_ms"] = device_mean_ms(kern, per_call=per_call)
         if per_call["launches"] != launches_a_call:
             raise AssertionError(f"kernel {name}[{variant}]: the trace counted "
                                  f"{per_call['launches']} kernel launches a call, not "
@@ -1166,7 +1198,7 @@ def warp_entries(graph, jobs) -> list:
 # the partitioned executor on the main graph
 # =========================================================================
 PART_WORKERS = (4, 8)
-PART_REPEATS = {4: 3, 8: 1}   # timed calls a job (median; 5 at both until the train phase came)
+PART_REPEATS = 1              # timed calls a job (median; 3 at W = 4 until the olmoe phase came)
 PART_PROFILED = ("Q4", "agg-min-2hop")
 HOP_KERNELS = ("fused_hop_cols", "fused_hop_interval", "scatter_cols")
 
@@ -1226,7 +1258,7 @@ def part_job(graph, job, W: int, impl: str = "cuda"):
 def phase_partitioned(graph, jobs, main_rows) -> tuple:
     """The partitioned executor (``core/engine_partitioned.py``) at W = 4
     and 8 on the main graph: every main-path job through
-    ``execute_batch_out(impl='cuda')``, latency (median of ``PART_REPEATS[W]``
+    ``execute_batch_out(impl='cuda')``, latency (median of ``PART_REPEATS``
     CUDA-event timings) beside the main phase's, peak and resident memory,
     answers held to the main path's impl='cuda' (and at W = 4 to the
     partitioned impl='torch'), B1-B3 launched exactly once per kernel-lowered
@@ -1264,7 +1296,7 @@ def phase_partitioned(graph, jobs, main_rows) -> tuple:
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             times, per_call = [], []
-            for _ in range(PART_REPEATS[W]):
+            for _ in range(PART_REPEATS):
                 out = None
                 ev0, ev1 = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
@@ -2162,51 +2194,45 @@ def tc_encode_us(q, k, v, kw, iters: int = 1000) -> float:
     return ns / 1e3
 
 
-def lm_smoke_check() -> dict:
-    """gemma3-4b SMOKE (float32): the port on the card through the kernel
-    against the port on the CPU (plain attention), which the CPU tests hold
-    to the JAX package; atol 2e-5 (matrix products summed in other orders)."""
-    from repro_torch.configs.gemma3_4b import SMOKE
+def lm_smoke_check(smoke=None, tag: str = "lm") -> dict:
+    """A SMOKE variant (float32; gemma3-4b's unless ``smoke`` is given): the
+    port on the card through the kernel against the port on the CPU (plain
+    attention), which the CPU tests hold to the JAX package; atol 2e-5
+    (matrix products summed in other orders)."""
     from repro_torch.models import transformer as TR
 
-    params = TR.init_params(SMOKE, torch.Generator().manual_seed(SEED), device="cpu")
+    if smoke is None:
+        from repro_torch.configs.gemma3_4b import SMOKE as smoke
+    params = TR.init_params(smoke, torch.Generator().manual_seed(SEED), device="cpu")
     on_card = tree_map(torch.Tensor.cuda, params)
-    toks = torch.randint(0, SMOKE.vocab, (2, 20), generator=torch.Generator().manual_seed(SEED))
-    err = close(TR.forward(SMOKE, on_card, toks.cuda()).cpu(), TR.forward(SMOKE, params, toks),
-                2e-5, 0.0, "lm smoke forward")
-    lc, cc = TR.prefill(SMOKE, on_card, toks.cuda(), 24)
-    lp, cp = TR.prefill(SMOKE, params, toks, 24)
-    err = max(err, close(lc.cpu(), lp, 2e-5, 0.0, "lm smoke prefill"))
+    toks = torch.randint(0, smoke.vocab, (2, 20), generator=torch.Generator().manual_seed(SEED))
+    err = close(TR.forward(smoke, on_card, toks.cuda()).cpu(), TR.forward(smoke, params, toks),
+                2e-5, 0.0, f"{tag} smoke forward")
+    lc, cc = TR.prefill(smoke, on_card, toks.cuda(), 24)
+    lp, cp = TR.prefill(smoke, params, toks, 24)
+    err = max(err, close(lc.cpu(), lp, 2e-5, 0.0, f"{tag} smoke prefill"))
     for n in range(21, 25):
         tok = lp.argmax(-1)
-        lc, cc = TR.decode_step(SMOKE, on_card, cc, tok.cuda(), n)
-        lp, cp = TR.decode_step(SMOKE, params, cp, tok, n)
-        err = max(err, close(lc.cpu(), lp, 2e-5, 0.0, f"lm smoke decode {n}"))
-    log(f"lm: SMOKE on the card equals the CPU port: forward, prefill, 4 decode "
+        lc, cc = TR.decode_step(smoke, on_card, cc, tok.cuda(), n)
+        lp, cp = TR.decode_step(smoke, params, cp, tok, n)
+        err = max(err, close(lc.cpu(), lp, 2e-5, 0.0, f"{tag} smoke decode {n}"))
+    log(f"{tag}: SMOKE on the card equals the CPU port: forward, prefill, 4 decode "
         f"steps, max_abs_err {err:.3g} (atol 2e-5)")
     return dict(max_abs_err=err)
 
 
-def phase_lm() -> tuple:
-    """Returns (report dict, kernel lines of B7)."""
-    from repro_torch.configs.gemma3_4b import CONFIG
+def lm_serve(cfg, params, prompts, tag: str) -> dict:
+    """The serve path timed at full width: a warm-up prefill and decode step,
+    then, with B7's counters set to 0 just before and read just after, the
+    prompts' ``prefill`` and LM_TOKENS - 1 greedy ``decode_step``s, each
+    phase timed on the host clock up to a synchronise.  Returns the timings,
+    peak and resident memory, B7's launches (all and by route), and the run's
+    float32 logits [LM_TOKENS, B, V], tokens [LM_TOKENS, B] and cache."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import transformer as TR
 
-    info = dict(smoke=lm_smoke_check())
-    cfg, dev = CONFIG, torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    t0 = time.perf_counter()
-    params = TR.init_params(cfg, gen, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in [params["embed"], params["ln_f"],
-                                        *params["layers"].values()])
-    if n_params != cfg.param_count():
-        raise AssertionError(f"lm: {n_params} parameters, config says {cfg.param_count()}")
-    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    dev = prompts.device
     max_len = LM_PROMPT + LM_TOKENS
-    info.update(config=cfg.name, params=n_params, batch=LM_BATCH, prompt=LM_PROMPT,
-                new_tokens=LM_TOKENS, max_len=max_len, init_s=time.perf_counter() - t0)
     logits = torch.empty((LM_TOKENS, LM_BATCH, cfg.vocab), dtype=torch.float32, device=dev)
     tokens = torch.empty((LM_TOKENS, LM_BATCH), dtype=torch.long, device=dev)
     # warm-up at full size: cuBLAS handles, the kernel's first launch, and the
@@ -2235,26 +2261,56 @@ def phase_lm() -> tuple:
     launches = FA.LAUNCHES["flash_attention"]   # read just after
     serve_routes = {r: FA.LAUNCHES["flash_attention_" + r] for r in FA.ROUTES}
     peak = torch.cuda.max_memory_allocated()
-    info.update(prefill_ms=(t1 - t0) * 1e3, decode_ms_per_token=(t2 - t1) * 1e3 / (LM_TOKENS - 1),
+    info = dict(prefill_ms=(t1 - t0) * 1e3, decode_ms_per_token=(t2 - t1) * 1e3 / (LM_TOKENS - 1),
                 resident_bytes=resident, peak_bytes=peak, launches=launches,
                 prefill_tokens_per_s=LM_BATCH * LM_PROMPT / (t1 - t0),
                 decode_tokens_per_s=LM_BATCH * (LM_TOKENS - 1) / (t2 - t1))
-    log(f"lm: gemma3-4b {n_params / 1e9:.3f} B params bf16, {LM_BATCH} x {LM_PROMPT}-token "
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"{tag}: {cfg.name} {n_params / 1e9:.3f} B params bf16, {LM_BATCH} x {LM_PROMPT}-token "
         f"prompts, {LM_TOKENS} greedy tokens: prefill {info['prefill_ms']:.1f} ms, decode "
         f"{info['decode_ms_per_token']:.2f} ms/token, peak_GiB={peak / 2**30:.3f} "
         f"resident_GiB={resident / 2**30:.3f}, B7 launches {launches}")
     want = cfg.n_layers * LM_TOKENS
     if launches != want:
-        raise AssertionError(f"lm: B7 launched {launches} times on the serve path, want {want}")
-    # the prefill's 34 through the tensor-core kernel, the 31 decode steps'
+        raise AssertionError(f"{tag}: B7 launched {launches} times on the serve path, want {want}")
+    # the prefill's layers through the tensor-core kernel, the decode steps'
     # through the split-K kernel, none through the CUDA-core kernel
     want_routes = dict(tc=cfg.n_layers, decode=cfg.n_layers * (LM_TOKENS - 1), simt=0)
     if serve_routes != want_routes:
-        raise AssertionError(f"lm: B7 routes on the serve path {serve_routes}, want {want_routes}")
+        raise AssertionError(f"{tag}: B7 routes on the serve path {serve_routes}, "
+                             f"want {want_routes}")
     info["launches_by_route"] = serve_routes
-    log(f"lm: B7 launches by route on the serve path: {serve_routes}")
+    log(f"{tag}: B7 launches by route on the serve path: {serve_routes}")
     if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("lm: non-finite logits")
+        raise AssertionError(f"{tag}: non-finite logits")
+    return dict(info=info, logits=logits, tokens=tokens, cache=cache)
+
+
+def phase_lm() -> tuple:
+    """Returns (report dict, kernel lines of B7)."""
+    from repro_torch.configs.gemma3_4b import CONFIG
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as TR
+
+    info = dict(smoke=lm_smoke_check())
+    cfg, dev = CONFIG, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = TR.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [params["embed"], params["ln_f"],
+                                        *params["layers"].values()])
+    if n_params != cfg.param_count():
+        raise AssertionError(f"lm: {n_params} parameters, config says {cfg.param_count()}")
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    max_len = LM_PROMPT + LM_TOKENS
+    info.update(config=cfg.name, params=n_params, batch=LM_BATCH, prompt=LM_PROMPT,
+                new_tokens=LM_TOKENS, max_len=max_len, init_s=time.perf_counter() - t0)
+    run = lm_serve(cfg, params, prompts, "lm")
+    info.update(run["info"])
+    logits, tokens, cache = run["logits"], run["tokens"], run["cache"]
+    serve_routes = info["launches_by_route"]
+    del run
 
     info["profile"] = dict(
         prefill=traced(lambda: TR.prefill(cfg, params, prompts, max_len)),
@@ -2356,17 +2412,41 @@ def phase_lm() -> tuple:
     free_memory()
 
     # B7 on the main path's calls: the prefill's layers 0 and 5, the last decode step's
-    entries = []
-    with AttentionCapture(LM_CAPTURE) as cap:
-        TR.prefill(cfg, params, prompts, max_len)
-    args = cap.check(cfg.n_layers, "prefill")
-    calls = {LM_CAPTURE[i]: args[i] for i in LM_CAPTURE}
-    with AttentionCapture(LM_CAPTURE) as cap:        # idempotent: rewrites row 2078
-        TR.decode_step(cfg, params, cache, tokens[LM_TOKENS - 2], LM_PROMPT + LM_TOKENS - 1)
-    args = cap.check(cfg.n_layers, "decode step")
-    calls.update({LM_CAPTURE[i].replace("prefill", "decode"): args[i] for i in LM_CAPTURE})
+    calls = b7_calls(cfg, params, prompts, cache, tokens, LM_CAPTURE)
     del params
     free_memory()
+    entries = b7_entries(calls, serve_routes, routes32)
+    del calls, cache
+    free_memory()
+    return info, entries
+
+
+def b7_calls(cfg, params, prompts, cache, tokens, capture: dict) -> dict:
+    """B7's operands on the serve path, {variant: (q, k, v, options)}: the
+    prefill's calls at the layers ``capture`` names ({layer: 'prefill,...'})
+    and the last decode step's at the same layers ('decode,...')."""
+    from repro_torch.models import transformer as TR
+
+    with AttentionCapture(capture) as cap:
+        TR.prefill(cfg, params, prompts, LM_PROMPT + LM_TOKENS)
+    args = cap.check(cfg.n_layers, "prefill")
+    calls = {capture[i]: args[i] for i in capture}
+    with AttentionCapture(capture) as cap:           # idempotent: rewrites the last row
+        TR.decode_step(cfg, params, cache, tokens[LM_TOKENS - 2], LM_PROMPT + LM_TOKENS - 1)
+    args = cap.check(cfg.n_layers, "decode step")
+    calls.update({capture[i].replace("prefill", "decode"): args[i] for i in capture})
+    return calls
+
+
+def b7_entries(calls: dict, serve_routes: dict, routes32: dict, model: str = "") -> list:
+    """B7's kernel lines: the kernel against its plain version on captured
+    calls of a serve path ({variant: (q, k, v, options)}), in bf16 and cast
+    to float32, timed by ``model_entry``.  ``serve_routes`` and ``routes32``
+    are the launches by route of the bf16 serve run and of the float32 run;
+    ``model`` (with a comma) starts each line's variant."""
+    from repro_torch.kernels import flash_attention as FA
+
+    entries = []
     # bf16: kernel and plain version both sum in float32 and round the output
     # once, so they may differ by one bf16 rounding: atol 1e-3, rtol 2^-7
     # (the tensor-core kernel also rounds p to bf16 before p @ v, which moves
@@ -2390,7 +2470,8 @@ def phase_lm() -> tuple:
             Hkv = k.shape[1]
             route = FA.attention_route(dtype, D, Sq, Hq // Hkv)
             e = model_entry(
-                kernel_of[route], variant + tag, lambda: FA.flash_attention(q, k, v, **kw),
+                kernel_of[route], model + variant + tag,
+                lambda: FA.flash_attention(q, k, v, **kw),
                 lambda: FA.attention_plain(q, k, v, **kw), attention_library(q, k, v, kw),
                 nbytes, 4.0 * D * pairs, rate, *tol, counts[route], library_tol=lib_tol)
             e["kernel_route"] = route
@@ -2413,8 +2494,233 @@ def phase_lm() -> tuple:
                     f"{e['tensor_map_encode_us']:.3f} us on the host (mean of 1,000)")
             entries.append(e)
             del q, k, v
-    del calls, cache
+    return entries
+
+
+# =========================================================================
+# mixture of experts: OLMoE-1B-7B (B7)
+# =========================================================================
+OLMOE_CAPTURE = {0: "prefill,global"}    # layer -> B7 variant (every OLMoE layer is global)
+ROUTE_TIE = 1e-6              # float32: a gate gap below this may route either way
+
+
+class RouteCapture:
+    """Records the MoE routing of every call of ``transformer.top_k`` (one
+    call a layer) under the label set in ``label``: the chosen experts as a
+    sorted set [G, S, K] and the gap between the K-th and (K+1)-th largest
+    gate [G, S].  Patches the module attribute ``_moe_groups`` calls
+    through, and restores it on exit."""
+
+    def __init__(self):
+        from repro_torch.models import transformer as TR
+
+        self.TR, self.label, self.calls = TR, None, {}
+
+    def __enter__(self):
+        self.orig = self.TR.top_k
+
+        def wrapped(gates, k):
+            w, i = self.orig(gates, k)
+            srt = torch.sort(gates, dim=-1, descending=True, stable=True).values
+            self.calls.setdefault(self.label, []).append(
+                (i.sort(dim=-1).values, srt[..., k - 1] - srt[..., k]))
+            return w, i
+
+        self.TR.top_k = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.TR.top_k = self.orig
+
+    def take(self, label: str, n_layers: int) -> list:
+        """The records of ``label`` since the last take, one a layer."""
+        recs = self.calls.pop(label, [])
+        if len(recs) != n_layers:
+            raise AssertionError(f"olmoe: {label} routed {len(recs)} layers, want {n_layers}")
+        return recs
+
+
+def route_flips(got: list, want: list, tainted: torch.Tensor, step: int,
+                tie: float | None) -> dict:
+    """Counts, over a step's layers, the tokens whose expert set differs
+    between two runs (``got`` and ``want``: RouteCapture records of one
+    step).  With ``tie`` (float32) each difference must be explained: a root
+    flip, where ``want``'s K-th/(K+1)-th gate gap is under ``tie``, or a
+    token that an earlier root flip has already changed (``tainted`` [G, S]:
+    in a row, the positions at and after a root flip from the next layer
+    on, and every later decode step; updated in place).  Else it raises."""
+    diff_total = root_total = 0
+    new_taint = torch.zeros_like(tainted)
+    for layer, ((gs, _), (ws, wgap)) in enumerate(zip(got, want)):
+        diff = (gs != ws).any(dim=-1)
+        tainted |= new_taint
+        diff_total += int(diff.sum())
+        if tie is None:
+            continue
+        root = diff & (wgap < tie)
+        bad = diff & ~root & ~tainted
+        if bool(bad.any()):
+            g, t = (int(x) for x in bad.nonzero()[0])
+            raise AssertionError(f"olmoe: step {step} layer {layer}: {int(bad.sum())} tokens "
+                                 f"routed differently (first: row {g} position {t}, gate gap "
+                                 f"{float(wgap[g, t]):.3g} >= {tie})")
+        root_total += int(root.sum())
+        # a root flip at position t changes that row at t and after, from the next layer on
+        new_taint |= root.int().cummax(dim=-1).values.bool()
+    tainted |= new_taint
+    return dict(differ=diff_total, root=root_total)
+
+
+def phase_olmoe() -> tuple:
+    """Returns (report dict, kernel lines of B7); see the module docstring's
+    phase 7a."""
+    from repro_torch.configs.olmoe_1b_7b import CONFIG, SMOKE
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as TR
+
+    t_phase = time.perf_counter()
+    info = dict(smoke=lm_smoke_check(SMOKE, "olmoe"))
+    # the tie rule on the card: equal gates choose the lower experts first
+    ties = (torch.arange(4 * 64, device="cuda").view(4, 64) % 3 == 0).float() / 4
+    got, want = TR.top_k(ties, 8)[1].cpu(), TR.top_k(ties.cpu(), 8)[1]
+    if not torch.equal(got, want) or got[0].tolist() != [0, 3, 6, 9, 12, 15, 18, 21]:
+        raise AssertionError(f"olmoe: top_k on the card breaks ties as {got[0].tolist()}")
+    cfg, dev = CONFIG, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = TR.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"olmoe: {n_params} parameters, config says {cfg.param_count()}")
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    max_len = LM_PROMPT + LM_TOKENS
+    m = cfg.moe
+    info.update(config=cfg.name, params=n_params, active_params=cfg.active_param_count(),
+                experts=m.n_experts, top_k=m.top_k, capacity_prefill=m.capacity(LM_PROMPT),
+                capacity_decode=m.capacity(1), batch=LM_BATCH, prompt=LM_PROMPT,
+                new_tokens=LM_TOKENS, max_len=max_len, init_s=time.perf_counter() - t0)
+    run = lm_serve(cfg, params, prompts, "olmoe")
+    info.update(run["info"])
+    tokens, cache = run["tokens"], run["cache"]
+    serve_routes = info["launches_by_route"]
+    del run
+    log(f"olmoe: {n_params:,} parameters = CONFIG.param_count() ({info['active_params']:,} "
+        f"active a token), capacity {info['capacity_prefill']} a row in the prefill and "
+        f"{info['capacity_decode']} in decode; prefill {info['prefill_tokens_per_s']:.0f} "
+        f"tokens/s, decode {info['decode_tokens_per_s']:.1f} tokens/s")
+    info["profile"] = dict(
+        prefill=traced(lambda: TR.prefill(cfg, params, prompts, max_len), top=8),
+        decode_step=traced(lambda: TR.decode_step(cfg, params, cache, tokens[LM_TOKENS - 2],
+                                                  LM_PROMPT + LM_TOKENS - 1), top=8))
+    for k, rec in info["profile"].items():
+        log_trace(f"profile: olmoe {k}", rec)
+    calls = b7_calls(cfg, params, prompts, cache, tokens, OLMOE_CAPTURE)
+    del cache
     free_memory()
+
+    # Teacher-forced on the served tokens: impl='cuda' in bf16 again (its
+    # routing recorded), impl='torch' in bf16, and the same model in float32
+    # (the bf16 weights cast up) through impl='cuda' and impl='torch'.  The
+    # MoE layers are the same code under both impls; only the attention's
+    # summation order differs, and a near tie of two gates may then route a
+    # token another way.  float32: logits within 1e-3 of the step's max
+    # |logit| on every row no root flip has reached, and every routing
+    # difference explained (``route_flips``).  bf16: within twice the plain
+    # bf16 run's own distance from float32 where no token of the step routed
+    # differently; where one did, the step is reported and held by the
+    # float32 check (bf16 gates tie often; the flips are counted, not bounded).
+    runs = dict(cuda=(cfg, params), torch=(dataclasses.replace(cfg, impl="torch"), params))
+    params32 = tree_map(torch.Tensor.float, params)
+    runs.update(cuda32=(dataclasses.replace(cfg, dtype=torch.float32), params32),
+                torch32=(dataclasses.replace(cfg, impl="torch", dtype=torch.float32), params32))
+    caches, out = {}, {}
+    tainted32 = torch.zeros(LM_BATCH, LM_PROMPT, dtype=torch.bool, device=dev)
+    steps, flipped16 = [], 0
+    launches = {label: dict.fromkeys(FA.ROUTES, 0) for label in runs}
+    with RouteCapture() as rc:
+        for i in range(LM_TOKENS):
+            for label, (c, p) in runs.items():
+                rc.label = label
+                before = {r: FA.LAUNCHES["flash_attention_" + r] for r in FA.ROUTES}
+                if i == 0:
+                    out[label], caches[label] = TR.prefill(c, p, prompts, max_len)
+                else:
+                    out[label], caches[label] = TR.decode_step(c, p, caches[label],
+                                                               tokens[i - 1], LM_PROMPT + i)
+                for r in FA.ROUTES:
+                    launches[label][r] += FA.LAUNCHES["flash_attention_" + r] - before[r]
+            rec = {label: rc.take(label, cfg.n_layers) for label in runs}
+            if i == 1:                 # decode: one position a row, tainted if any was
+                tainted32 = tainted32.any(dim=-1, keepdim=True)
+            f32 = route_flips(rec["cuda32"], rec["torch32"], tainted32, i, ROUTE_TIE)
+            b16 = route_flips(rec["cuda"], rec["torch"], tainted32, i, None)
+            flipped16 += b16["differ"]
+            c16, t16, c32, t32 = (out[k] for k in ("cuda", "torch", "cuda32", "torch32"))
+            if not all(bool(torch.isfinite(x).all()) for x in (c16, t16, c32, t32)):
+                raise AssertionError(f"olmoe: step {i}: non-finite logits")
+            clean = ~tainted32.any(dim=-1)             # rows no root flip has reached
+            top32 = float(t32.abs().max())
+            err32 = float((c32 - t32).abs().max(dim=-1).values[clean].max()) \
+                if bool(clean.any()) else 0.0
+            if err32 > 1e-3 * top32:
+                raise AssertionError(f"olmoe: step {i}: float32 impl cuda vs torch max |logit "
+                                     f"diff| {err32} > 1e-3 x {top32}")
+            gap32 = t32.topk(2, dim=-1).values
+            decided32 = ((gap32[:, 0] - gap32[:, 1]) > 1e-3 * top32) & clean
+            if bool((decided32 & (c32.argmax(-1) != t32.argmax(-1))).any()):
+                raise AssertionError(f"olmoe: step {i}: a float32 greedy token differs where "
+                                     f"the top-1/top-2 gap exceeds {1e-3 * top32}")
+            top = float(t16.abs().max())
+            own = float((t16 - t32).abs().max())       # the plain run's bf16 error
+            err = float((c16 - t16).abs().max())
+            held = err <= 2 * own
+            if not held and flipped16 == 0:
+                raise AssertionError(f"olmoe: step {i}: bf16 max |logit diff| {err} > 2 x "
+                                     f"{own} with every token routed alike so far")
+            steps.append(dict(step=i, f32_err=err32, f32_bound=1e-3 * top32, max_logit=top,
+                              f32_rows_checked=int(clean.sum()), f32_route_diff=f32["differ"],
+                              f32_root_flips=f32["root"], bf16_err=err, bf16_bound=2 * own,
+                              bf16_held=held, bf16_route_diff=b16["differ"]))
+    # B7 in the teacher-forced runs: bf16 as served; float32 through the
+    # CUDA-core prefill and the split-K decode; the plain runs none
+    decode = cfg.n_layers * (LM_TOKENS - 1)
+    want = dict(cuda=serve_routes, torch=dict.fromkeys(FA.ROUTES, 0),
+                cuda32=dict(tc=0, decode=decode, simt=cfg.n_layers),
+                torch32=dict.fromkeys(FA.ROUTES, 0))
+    if launches != want:
+        raise AssertionError(f"olmoe: B7 routes of the teacher-forced runs {launches}, "
+                             f"want {want}")
+    routes32 = info["f32_launches_by_route"] = launches["cuda32"]
+    if steps[-1]["f32_rows_checked"] == 0:
+        raise AssertionError("olmoe: root flips reached every row: the float32 logits were "
+                             "held on none")
+    del caches, out, params32, runs, params
+    free_memory()
+    info.update(
+        teacher_forced=steps,
+        f32_max_abs_logit_err=max(st["f32_err"] for st in steps),
+        f32_max_err_over_bound=max(st["f32_err"] / st["f32_bound"] for st in steps),
+        f32_route_diff=sum(st["f32_route_diff"] for st in steps),
+        f32_root_flips=sum(st["f32_root_flips"] for st in steps),
+        f32_rows_checked_last=steps[-1]["f32_rows_checked"],
+        bf16_route_diff=sum(st["bf16_route_diff"] for st in steps),
+        bf16_steps_held=sum(st["bf16_held"] for st in steps),
+        bf16_max_err_over_bound=max(st["bf16_err"] / st["bf16_bound"] for st in steps))
+    log(f"olmoe: float32, impl='cuda' vs impl='torch' with teacher forcing: max |logit diff| "
+        f"{info['f32_max_abs_logit_err']:.4g}, at most {info['f32_max_err_over_bound']:.4g} of "
+        f"the bound (1e-3 x the step's max |logit|) on the {info['f32_rows_checked_last']} of "
+        f"{LM_BATCH} rows no root flip reached; {info['f32_route_diff']} token-layers routed "
+        f"differently, {info['f32_root_flips']} of them root flips (gate gap < {ROUTE_TIE})")
+    log(f"olmoe: bf16, impl='cuda' vs impl='torch' with teacher forcing: "
+        f"{info['bf16_route_diff']} token-layers routed differently; {info['bf16_steps_held']} "
+        f"of {LM_TOKENS} steps within 2 x plain bf16 vs float32 (worst "
+        f"{info['bf16_max_err_over_bound']:.4g} of it)")
+    entries = b7_entries(calls, serve_routes, routes32, model="olmoe,")
+    del calls
+    free_memory()
+    info["wall_s"] = time.perf_counter() - t_phase
+    log(f"olmoe: phase {info['wall_s']:.1f}s")
     return info, entries
 
 
@@ -3005,25 +3311,40 @@ def main(argv=None) -> int:
                     help="where the full JSON report is written")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def lap(name: str) -> None:    # the seconds since the last lap, logged and kept
+        now = time.perf_counter()
+        REPORT.setdefault("phase_s", {})[name] = now - t_mark[0]
+        log(f"wall: {name} {now - t_mark[0]:.1f}s")
+        t_mark[0] = now
+
     smi = phase_device()
     from repro_torch.kernels import hop_scatter as HK
 
     phase_build()
     phase_oracle()
+    lap("device, build, oracle")
     rec = Recorder(HK)
     REPORT["main"], graph, jobs = phase_main(rec)
+    lap("main")
     REPORT["profile"] = phase_profile(graph, jobs)
+    lap("profile")
     rec.capture(lambda j: run_job(graph, jobs[j]))
     kernels = phase_kernels(rec, REPORT["main"]["launches"], graph)
     kernels += warp_entries(graph, jobs)
     rec.inputs.clear()            # the kernels phase's operands: not the server's memory
     free_memory()
+    lap("kernels")
     REPORT["partitioned"], part_kernels = phase_partitioned(graph, jobs,
                                                            REPORT["main"]["rows"])
     kernels += part_kernels
+    lap("partitioned")
     served = {}
     REPORT["serve"] = phase_serve(graph, served)
+    lap("serve")
     REPORT["live"] = phase_live(graph, served)
+    lap("live")
     for e in kernels[:len(kernels) - len(part_kernels)]:   # B1-B3 on the serve paths
         base = e["name"].split("[")[0]
         for phase in ("serve", "live"):
@@ -3032,11 +3353,17 @@ def main(argv=None) -> int:
     del rec, graph, jobs, served
     free_memory()
     REPORT["lm"], lm_kernels = phase_lm()
+    lap("lm")
+    REPORT["olmoe"], olmoe_kernels = phase_olmoe()
+    lap("olmoe")
     REPORT["dlrm"], dlrm_kernels = phase_dlrm()
+    lap("dlrm")
     REPORT["gnn"], gnn_kernels = phase_gnn()
-    kernels += lm_kernels + dlrm_kernels + gnn_kernels
+    lap("gnn")
+    kernels += lm_kernels + olmoe_kernels + dlrm_kernels + gnn_kernels
     free_memory()
     REPORT["train"] = phase_train()
+    lap("train")
     REPORT["kernels"] = kernels
     REPORT["wall_s"] = time.perf_counter() - t_start
     report = Path(args.report)

@@ -1,17 +1,22 @@
-"""Dense LM transformer (the gemma3 family): GQA + RoPE + SwiGLU, with
-sliding-window and local:global attention patterns, and its serve path.
+"""LM transformer family (gemma3 / minicpm / llama3 / olmoe / mixtral): GQA +
+RoPE + SwiGLU, optional mixture-of-experts MLP, sliding-window and
+local:global attention patterns, its serve path and its training path.
 
-The counterpart of the reference's ``models/transformer.py`` for dense
-models on one card.  Parameters keep the reference's layout: per-layer
-weights stacked on a leading ``[L, ...]`` axis, ``x @ w`` with ``w`` as
-``[in, out]``.  Layers run in a Python loop, so every layer's attention
-window is a Python int and every attention call of ``forward``, ``prefill``
-and ``decode_step`` goes through ``kernels.flash_attention`` (the
-reference's unscanned forward takes the same kernel; its scanned prefill
-and its decode compute the same function with masked einsums).
+The counterpart of the reference's ``models/transformer.py`` on one card.
+Parameters keep the reference's layout: per-layer weights stacked on a
+leading ``[L, ...]`` axis, ``x @ w`` with ``w`` as ``[in, out]``.  Layers
+run in a Python loop, so every layer's attention window is a Python int and
+every attention call of ``forward``, ``prefill`` and ``decode_step`` goes
+through ``kernels.flash_attention`` (the reference's unscanned forward takes
+the same kernel; its scanned prefill and its decode compute the same
+function with masked einsums).
 
-Not ported here (ROADMAP A11): mixture-of-experts layers, the int8 KV
-cache, training (loss, remat, sharding).
+The MoE MLP is the reference's sort-based dispatch: groups are batch rows,
+each with capacity ``C = max(1, int(cf * K * S / E))``; tokens past an
+expert's capacity are dropped, never rerouted.  Its expert products are
+batched matrix products, as the reference's are (no kernel).
+
+Not ported here (ROADMAP A11): the int8 KV cache and sharding.
 """
 from __future__ import annotations
 
@@ -34,6 +39,23 @@ Cache = Tuple[torch.Tensor, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_ff: int
+    capacity_factor: float = 1.25
+
+    def __post_init__(self):
+        if not 1 <= self.top_k <= self.n_experts:
+            raise ValueError(f"top_k {self.top_k} outside 1..n_experts {self.n_experts}")
+
+    def capacity(self, group_tokens: int) -> int:
+        """Slots per expert in a group of ``group_tokens`` tokens, from the
+        shape alone (Python float arithmetic, as the reference)."""
+        return max(1, int(self.capacity_factor * self.top_k * group_tokens / self.n_experts))
+
+
+@dataclasses.dataclass(frozen=True)
 class TransformerCfg:
     name: str
     n_layers: int
@@ -45,7 +67,7 @@ class TransformerCfg:
     vocab: int
     rope_theta: float = 500000.0
     norm_eps: float = 1e-6
-    moe: Optional[object] = None           # not ported: ROADMAP A11
+    moe: Optional[MoECfg] = None
     sliding_window: Optional[int] = None   # local window size
     global_every: int = 0                  # 0: uniform; k: every k-th layer full
     tie_embeddings: bool = True
@@ -53,12 +75,12 @@ class TransformerCfg:
     kv_cache_quant: bool = False           # not ported: ROADMAP A11
     impl: str = "cuda"                     # 'cuda' (the kernel) | 'torch' (plain)
     remat: bool = True                     # training: recompute each layer in backward
-    remat_inner: bool = False              # training: recompute each attention chunk
+    remat_inner: bool = False              # training: recompute attention chunks, MoE layers
     gqa_native: bool = False               # training: grouped-einsum GQA, no repeated KV
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError("mixture-of-experts layers are not ported yet (ROADMAP A11)")
+        if self.moe is not None and not isinstance(self.moe, MoECfg):
+            raise TypeError(f"moe must be a MoECfg, not {type(self.moe).__name__}")
         if self.kv_cache_quant:
             raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP A11)")
         check_impl(self.impl)
@@ -73,10 +95,26 @@ class TransformerCfg:
                 w[self.global_every - 1:: self.global_every] = FULL_WINDOW
         return w
 
+    def _attn_params(self) -> int:
+        return self.d_model * (self.n_heads + self.n_kv_heads) * self.d_head * 2
+
     def param_count(self) -> int:
-        D, F_, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
-        attn = D * self.n_heads * self.d_head * 2 + D * self.n_kv_heads * self.d_head * 2
-        return V * D * (1 if self.tie_embeddings else 2) + L * (attn + 3 * D * F_ + 2 * D) + D
+        D, V, L = self.d_model, self.vocab, self.n_layers
+        if self.moe:
+            mlp = self.moe.n_experts * 3 * D * self.moe.d_ff + D * self.moe.n_experts
+        else:
+            mlp = 3 * D * self.d_ff
+        layer = self._attn_params() + mlp + 2 * D
+        return V * D * (1 if self.tie_embeddings else 2) + L * layer + D
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses: top_k experts of each MoE layer (the
+        reference's count, one embedding table whether tied or not)."""
+        if not self.moe:
+            return self.param_count()
+        D, L = self.d_model, self.n_layers
+        mlp = self.moe.top_k * 3 * D * self.moe.d_ff + D * self.moe.n_experts
+        return self.vocab * D + L * (self._attn_params() + mlp + 2 * D) + D
 
 
 # ------------------------------------------------------------------- params
@@ -102,10 +140,14 @@ def init_params(cfg: TransformerCfg, generator: torch.Generator,
         wk=stacked((D, Hkv * Dh), D),
         wv=stacked((D, Hkv * Dh), D),
         wo=stacked((Hq * Dh, D), Hq * Dh),
-        wg=stacked((D, F_), D),
-        wu=stacked((D, F_), D),
-        wd=stacked((F_, D), F_),
     )
+    if cfg.moe:
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
+        layers.update(router=stacked((D, E), D), wg=stacked((E, D, Fe), D),
+                      wu=stacked((E, D, Fe), D), wd=stacked((E, Fe, D), Fe))
+    else:
+        layers.update(wg=stacked((D, F_), D), wu=stacked((D, F_), D),
+                      wd=stacked((F_, D), F_))
     params = dict(embed=dense_init(generator, (cfg.vocab, D), D, dt, dev),
                   ln_f=torch.ones(D, dtype=dt, device=dev), layers=layers)
     if not cfg.tie_embeddings:
@@ -156,8 +198,67 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
 
 def _mlp(cfg: TransformerCfg, lp, x):
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    g = _silu(h @ lp["wg"]) * (h @ lp["wu"])
-    return x + g @ lp["wd"]
+    if cfg.moe is None:
+        g = _silu(h @ lp["wg"]) * (h @ lp["wu"])
+        return x + g @ lp["wd"]
+    if cfg.remat_inner and torch.is_grad_enabled():   # recomputed in backward
+        return x + checkpoint(_moe_groups, cfg, lp, h, use_reentrant=False,
+                              preserve_rng_state=False)
+    return x + _moe_groups(cfg, lp, h)
+
+
+def top_k(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest of the last axis, largest first, and their indices;
+    of equal values the lower index first (``jax.lax.top_k``'s order, which
+    ``torch.topk`` does not promise): a stable descending sort."""
+    w, i = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return w[..., :k], i[..., :k]
+
+
+def _moe_groups(cfg: TransformerCfg, lp, h: torch.Tensor) -> torch.Tensor:
+    """The MoE MLP of the normed input ``h`` [G, S, D], each of the G batch
+    rows one group: the reference's ``group_moe`` mapped over the groups.
+    Returns [G, S, D] in ``h.dtype``.
+
+    Routing: the float32 softmax of ``h @ router``, its top K normalised by
+    max(sum, 1e-9).  The (token, choice) pairs sorted stably by expert give
+    each its rank within its expert; rank >= C drops it (weight 0).  The
+    expert buffer [E, C, D] holds, at (e, c), the token of rank c at
+    expert e, or zeros: the reference's scatter of the kept tokens, written
+    as a gather.  Each token's output is the float32 sum of its kept
+    choices' expert outputs times their weights, cast to ``h.dtype``."""
+    m = cfg.moe
+    G, S, D = h.shape
+    E, K = m.n_experts, m.top_k
+    C = m.capacity(S)
+    dev = h.device
+    gates = torch.softmax((h @ lp["router"]).float(), dim=-1)          # [G, S, E]
+    topw, topi = top_k(gates, K)
+    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_e = topi.reshape(G, S * K)                                    # pair p = t * K + k
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = flat_e.gather(1, order)                                       # experts, sorted
+    first = torch.searchsorted(se, se, side="left")
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(S * K, device=dev) - first)             # rank of pair p
+    keep = rank < C
+    # dispatch: slot (e, c) takes sorted pair start[e] + c where c < count[e]
+    experts = torch.arange(E, device=dev).expand(G, E).contiguous()
+    start = torch.searchsorted(se, experts, side="left")
+    count = torch.searchsorted(se, experts, side="right") - start
+    c = torch.arange(C, device=dev)
+    src = (start[..., None] + c).clamp_max(S * K - 1)                  # [G, E, C]
+    tok = order.gather(1, src.view(G, E * C)) // K
+    xe = h.gather(1, tok[..., None].expand(G, E * C, D))
+    xe = xe * (c < count[..., None]).view(G, E * C, 1).to(h.dtype)     # empty slots: 0
+    xe = xe.view(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    oe = (_silu(xe @ lp["wg"]) * (xe @ lp["wu"])) @ lp["wd"]           # [E, G*C, D]
+    oe = oe.view(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+    # combine: token t sums its K choices' rows (dropped: weight 0)
+    slot = (flat_e * C + rank).clamp_max(E * C - 1)
+    rows = oe.gather(1, slot[..., None].expand(G, S * K, D)).float()
+    w = (topw.reshape(G, S * K) * keep).view(G * S, 1, K)
+    return torch.bmm(w, rows.view(G * S, K, D)).view(G, S, D).to(h.dtype)
 
 
 def _embed(cfg: TransformerCfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
