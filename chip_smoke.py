@@ -96,7 +96,7 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                repro_torch.launch.query --persons 1000 --dynamic --queries 2
                --serve --verify`` must exit 0 and print ``verification vs
                oracle: OK``, and so must the same command with ``--engine
-               partitioned``.
+               partitioned``; the two run side by side.
   6c. live     live graphs on the main graph (``graphdata/ingest.py``,
                ``serving/epochs.py``, the scheduler's ``pin_epoch`` and its
                base+delta dispatch): ``log_from_graph`` holds out a tenth of
@@ -128,11 +128,12 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                first bucket drain: the telemetry replayed from the trace
                (``obs/audit.py``) must equal the live buffer's, and
                ``scripts/torch_trace_report.py --audit`` must render the
-               trace.  Then ``python -m repro_torch.launch.query --persons
-               1000 --live --wal build/live.wal --holdout 64 --epochs
-               LIVE_EPOCHS`` runs fresh and again on the same WAL, which must
-               recover LIVE_EPOCHS + 1 sealed epochs and pin the first run's
-               last fingerprint.
+               trace.  Beside the host's set-up (``log_from_graph`` and epoch
+               0), ``python -m repro_torch.launch.query --persons 1000 --live
+               --wal build/live.wal --holdout 64 --epochs LIVE_EPOCHS`` runs
+               fresh and again on the same WAL, which must recover
+               LIVE_EPOCHS + 1 sealed epochs and pin the first run's last
+               fingerprint; both end before the first timed drain.
                Lines: ``live: set-up``, ``audit:``, ``live: epoch k`` (events,
                materialize and seal s, fingerprints, delta edges and
                capacity, flush wall ms and p50/p99, delta/merged dispatches,
@@ -170,6 +171,20 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                that form too: each is timed, and the faster in a single call
                is the line's library call.  The global prefill also gives
                the host's time to encode its three tensor maps.
+               Then the int8 KV cache on the same traffic: ``prefill``, its
+               float cache turned into the int8 cache by
+               ``transformer.quantize_cache``, and 31 ``decode_step``s with
+               ``kv_cache_quant`` fed the bf16 run's tokens, B7 counted: 34 x
+               31 launches of the int8 decode route ('decode_int8').
+               impl='torch' from a copy of the same cache is held against it,
+               teacher-forced, within the bf16 run's per-step bounds; decode
+               ms a token beside the bf16 run's, peak GiB, the cache's bytes
+               against bf16's, greedy agreement and post-softmax distance
+               from the bf16 run are findings.  Then the int8 route against
+               ``attention_int8_plain`` on layer 0's (local) and layer 5's
+               (global) last-step calls, timed as above; the library call is
+               SDPA over a bf16 copy of the visible rows dequantized
+               beforehand.
   7a. olmoe   OLMoE-1B-7B at full width (16 layers, 64 experts top-8,
                6.82 B parameters in bf16, random weights from SEED, made on
                the card): first its SMOKE variant on the card against the
@@ -222,6 +237,11 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                batches within 1e-4 of each output's max |value|.  Then B5
                against its plain version on captured operands of the
                requests, timed as in phase 6.
+  9a. registry ``load_arch(a).smoke()`` for every id of ``configs.ARCH_IDS``
+               on the card: each ok with a finite loss; granite-ldbc's engine
+               counts equal to its oracle's; an LM SMOKE whose d_head B7
+               takes must launch B7 (those of d_head 8 or 12 attend with the
+               plain version: no kernel is built that narrow).
 
   10. train    MiniCPM-2B training (``training/``; the first of
                ``launch/train.py``'s synthetic zipf batches at every step;
@@ -308,6 +328,7 @@ SOURCE = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_tc": "src/repro_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_decode": "src/repro_torch/csrc/flash_decode.cu",
+    "flash_attention_decode_int8": "src/repro_torch/csrc/flash_decode_int8.cu",
     "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
     "bucket_scatter": "src/repro_torch/csrc/bucket_scatter.cu",
     "interval_warp": "src/repro_torch/csrc/interval_warp.cu",
@@ -317,7 +338,8 @@ REPLACES = {
     "fused_hop_interval": "src/repro/kernels/hop_scatter/hop_scatter.py:243",
     "scatter_cols": "src/repro/kernels/hop_scatter/hop_scatter.py:293",
     "scatter_extremum": "src/repro/kernels/hop_scatter/hop_scatter.py:314",
-    **dict.fromkeys(("flash_attention", "flash_attention_tc", "flash_attention_decode"),
+    **dict.fromkeys(("flash_attention", "flash_attention_tc", "flash_attention_decode",
+                     "flash_attention_decode_int8"),
                     "src/repro/kernels/flash_attention/flash_attention.py:72"),
     "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:57",
     "bucket_scatter": "src/repro/kernels/bucket_scatter/bucket_scatter.py:37",
@@ -1640,14 +1662,13 @@ def phase_serve(graph, served: dict) -> dict:
     log(f"serve: launches over the drains and their check flushes: {launches} (bucket "
         f"{bucket['launches']}, static {static['launches']}, replay {replay['launches']})")
 
-    # ---- the CLI a user starts, on a small graph, on each engine choice
+    # ---- the CLI a user starts, on a small graph, on each engine choice; the
+    # two runs are independent and run side by side
     clis = []
-    for argv in (SERVE_CLI, SERVE_CLI + ["--engine", "partitioned"]):
-        t0 = time.perf_counter()
-        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.query"] + argv,
-                             cwd=ROOT, capture_output=True, text=True, timeout=600,
-                             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-        cli_s = time.perf_counter() - t0
+    argvs = (SERVE_CLI, SERVE_CLI + ["--engine", "partitioned"])
+    with ThreadPoolExecutor(len(argvs)) as pool:
+        runs = list(pool.map(run_cli, argvs))
+    for argv, (cli, cli_s) in zip(argvs, runs):
         if cli.returncode != 0 or "verification vs oracle: OK" not in cli.stdout:
             raise AssertionError(f"serve: the CLI failed (rc {cli.returncode}): "
                                  f"{cli.stdout[-800:]} {cli.stderr[-1500:]}")
@@ -1824,6 +1845,16 @@ def live_audit(tracer, tb) -> dict:
     return out
 
 
+def run_cli(argv: list) -> tuple:
+    """``python -m repro_torch.launch.query`` with ``argv`` from the repo's
+    root: (the finished process, its seconds)."""
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.query"] + argv,
+                         cwd=ROOT, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    return cli, time.perf_counter() - t0
+
+
 def live_cli() -> dict:
     """``python -m repro_torch.launch.query --live --wal`` fresh, then again
     on the same WAL: the second run must recover every sealed epoch and pin
@@ -1832,14 +1863,11 @@ def live_cli() -> dict:
     LIVE_WAL.unlink(missing_ok=True)
     runs = []
     for _ in range(2):
-        t0 = time.perf_counter()
-        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.query"] + LIVE_CLI,
-                             cwd=ROOT, capture_output=True, text=True, timeout=600,
-                             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        cli, cli_s = run_cli(LIVE_CLI)
         if cli.returncode != 0:
             raise AssertionError(f"live: the CLI failed (rc {cli.returncode}): "
                                  f"{cli.stdout[-800:]} {cli.stderr[-1500:]}")
-        runs.append(dict(seconds=time.perf_counter() - t0, stdout=cli.stdout))
+        runs.append(dict(seconds=cli_s, stdout=cli.stdout))
     fps = [ln.split("fp=")[1].split()[0] for ln in runs[0]["stdout"].splitlines()
            if "fp=" in ln]
     rec = [ln for ln in runs[1]["stdout"].splitlines() if ln.startswith("recovered ")]
@@ -1865,8 +1893,8 @@ def phase_live(graph, served: dict) -> dict:
     epoch 1), on the kernels; a partitioned scheduler drains it in static
     mode at epochs 0 and 1 (the second through the partition hint); the
     flight recorder and a telemetry buffer ride epoch 0's first bucket drain
-    for the cost-model audit; then the CLI serves ``--live --wal`` and
-    recovers from its WAL."""
+    for the cost-model audit.  Beside the host's set-up of epoch 0, the CLI
+    serves ``--live --wal`` and recovers from its WAL."""
     from repro_torch.core import engine as E
     from repro_torch.core import engine_partitioned as EP
     from repro_torch.graphdata.ingest import log_from_graph
@@ -1882,17 +1910,21 @@ def phase_live(graph, served: dict) -> dict:
     wl_delta = [i for i in wl if all(e.etr_op == -1 for e in i.qry.e_preds)]
     mark0 = dict(HK.LAUNCHES)
 
-    # ---- set-up: the event log and epoch 0
-    t0 = time.perf_counter()
-    elog, held = log_from_graph(graph, holdout_edges=graph.n_edges // 10, seed=SEED)
-    log_s = time.perf_counter() - t0
-    if len(held) != graph.n_edges // 10:
-        raise AssertionError(f"live: {len(held)} held edges")
-    mx, mtr = MetricsRegistry(), Tracer(capacity=1 << 16)
-    mgr = EpochManager(elog, metrics=mx, tracer=mtr)
-    t0 = time.perf_counter()
-    ep = mgr.seal()
-    seal_s = time.perf_counter() - t0
+    # ---- set-up: the event log and epoch 0, on the host, while the CLI
+    # (its own small graph and WAL) runs beside it
+    with ThreadPoolExecutor(1) as pool:
+        cli = pool.submit(live_cli)
+        t0 = time.perf_counter()
+        elog, held = log_from_graph(graph, holdout_edges=graph.n_edges // 10, seed=SEED)
+        log_s = time.perf_counter() - t0
+        if len(held) != graph.n_edges // 10:
+            raise AssertionError(f"live: {len(held)} held edges")
+        mx, mtr = MetricsRegistry(), Tracer(capacity=1 << 16)
+        mgr = EpochManager(elog, metrics=mx, tracer=mtr)
+        t0 = time.perf_counter()
+        ep = mgr.seal()
+        seal_s = time.perf_counter() - t0
+        cli = cli.result()        # before the first timed drain
     info = dict(setup=dict(events=len(elog), held_edges=len(held), log_from_graph_s=log_s,
                            epoch0_s=seal_s, n_vertices=ep.graph.n_vertices,
                            n_edges=ep.graph.n_edges), epochs=[])
@@ -1955,7 +1987,7 @@ def phase_live(graph, served: dict) -> dict:
                                      f"the cache: {row[m]['first']}")
             row[m]["n_delta"] = sum(dl for _, dl in pairs)
             row[m]["n_merged"] = len(pairs) - row[m]["n_delta"]
-            if live_epoch:
+            if ep.id == LIVE_EPOCHS:   # the delta path's own cost, at the window's end
                 row[m]["delta_cost"] = delta_cost(sched, wl, mode)
         if ep.id == 1:
             # Q2/Q2-min in interval mode, and each delta group against a
@@ -2049,7 +2081,7 @@ def phase_live(graph, served: dict) -> dict:
             raise AssertionError(f"live: the compacting advance invalidated "
                                  f"{invalidations()} entries")
     info["partitioned"] = partitioned
-    info["cli"] = live_cli()
+    info["cli"] = cli
     info["launches"] = launches_since(mark0)
     missing = [k for k, v in info["launches"].items() if v == 0]
     if missing:
@@ -2114,7 +2146,9 @@ class AttentionCapture:
 
         def wrapped(q, k, v, **kw):
             if self.calls in self.layers:    # the options, less the impl (always 'cuda')
-                self.args[self.calls] = (q, k, v, {o: x for o, x in kw.items() if o != "impl"})
+                # and scales where there are none (a float cache)
+                self.args[self.calls] = (q, k, v, {o: x for o, x in kw.items() if o != "impl"
+                                                   and not (o == "scales" and x is None)})
             self.calls += 1
             return self.orig(q, k, v, **kw)
 
@@ -2411,6 +2445,13 @@ def phase_lm() -> tuple:
         f"{LM_TOKENS * LM_BATCH} tokens fall within it; routes {routes32}")
     free_memory()
 
+    # the int8 KV cache on the same traffic, held to impl='torch' at the bf16
+    # leg's bounds
+    info["int8"], int8_calls = lm_int8_leg(cfg, params, prompts, logits, tokens,
+                                           [st["bound"] for st in steps],
+                                           info["decode_ms_per_token"])
+    free_memory()
+
     # B7 on the main path's calls: the prefill's layers 0 and 5, the last decode step's
     calls = b7_calls(cfg, params, prompts, cache, tokens, LM_CAPTURE)
     del params
@@ -2418,19 +2459,179 @@ def phase_lm() -> tuple:
     entries = b7_entries(calls, serve_routes, routes32)
     del calls, cache
     free_memory()
+    entries += int8_entries(int8_calls, info["int8"]["launches_by_route"]["decode_int8"])
+    del int8_calls
+    free_memory()
     return info, entries
 
 
-def b7_calls(cfg, params, prompts, cache, tokens, capture: dict) -> dict:
-    """B7's operands on the serve path, {variant: (q, k, v, options)}: the
-    prefill's calls at the layers ``capture`` names ({layer: 'prefill,...'})
-    and the last decode step's at the same layers ('decode,...')."""
+def lm_int8_leg(cfg, params, prompts, ref_logits, ref_tokens, bounds: list,
+                bf16_ms: float) -> tuple:
+    """gemma3-4b at full width over the int8 KV cache, on the bf16 leg's
+    traffic: ``prefill`` (which returns the float cache, as the reference's
+    does), the int8 cache built from it (``quantize_cache``), a warm-up step, then
+    LM_TOKENS - 1 ``decode_step``s with impl='cuda' fed the bf16 run's greedy
+    tokens (``ref_tokens``), B7's counters set to 0 just before and read
+    just after: every layer of every step must launch the int8 decode route.
+    The check: the same steps with impl='torch' from a copy of the same int8
+    cache, logits within ``bounds`` (the bf16 leg's per step: twice the
+    plain bf16 run's distance from float32), greedy tokens equal where the
+    top-1/top-2 gap exceeds the bound.  Findings, not gates: decode ms a
+    token beside the bf16 leg's (``bf16_ms``, earlier in the run), peak and
+    resident GiB, the cache's bytes against bf16's, the int8
+    run's greedy tokens against the bf16 run's and the largest post-softmax
+    distance from the bf16 run's logits (``ref_logits``).  Returns (info, B7's
+    operands at the last step's layers 0 and 5)."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import transformer as TR
 
-    with AttentionCapture(capture) as cap:
-        TR.prefill(cfg, params, prompts, LM_PROMPT + LM_TOKENS)
-    args = cap.check(cfg.n_layers, "prefill")
-    calls = {capture[i]: args[i] for i in capture}
+    cfgq = dataclasses.replace(cfg, kv_cache_quant=True)
+    plainq = dataclasses.replace(cfgq, impl="torch")
+    max_len = LM_PROMPT + LM_TOKENS
+    t0 = time.perf_counter()
+    out0, fcache = TR.prefill(cfgq, params, prompts, max_len)
+    cache = TR.quantize_cache(fcache, LM_PROMPT)
+    del fcache
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # warm-up: the int8 kernel's first launches (each run writes this row again)
+    TR.decode_step(cfgq, params, cache, ref_tokens[0], LM_PROMPT + 1)
+    copy = tuple(t.clone() for t in cache)
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits = torch.empty((LM_TOKENS, LM_BATCH, cfg.vocab), dtype=torch.float32,
+                         device=prompts.device)
+    logits[0].copy_(out0)
+    FA.reset_launches()           # the count is 0 just before the int8 decode path
+    t1 = time.perf_counter()
+    for i in range(1, LM_TOKENS):
+        out, cache = TR.decode_step(cfgq, params, cache, ref_tokens[i - 1], LM_PROMPT + i)
+        logits[i].copy_(out)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    routes = {r: FA.LAUNCHES["flash_attention_" + r] for r in (*FA.ROUTES, "decode_int8")}
+    peak = torch.cuda.max_memory_allocated()
+    steps = cfg.n_layers * (LM_TOKENS - 1)
+    want = dict(tc=0, decode=steps, simt=0, decode_int8=steps)
+    if routes != want:
+        raise AssertionError(f"lm int8: B7 launches by route {routes}, want {want}")
+    # where a step's time goes: one traced step (it writes its row again),
+    # and the host's time of one layer's quantization of its k and v rows
+    trace = traced(lambda: TR.decode_step(cfgq, params, cache, ref_tokens[LM_TOKENS - 2],
+                                          LM_PROMPT + LM_TOKENS - 1))
+    log_trace("profile: lm int8 decode_step", trace)
+    kv = torch.zeros((2, LM_BATCH, cfg.n_kv_heads, cfg.d_head), dtype=cfg.dtype,
+                     device=prompts.device)
+    quantize_us = host_us(lambda: TR._quantize_kv(kv))
+    nbytes = sum(t.numel() * t.element_size() for t in cache)
+    bf16_bytes = 2 * cfg.n_layers * LM_BATCH * cfg.n_kv_heads * max_len * cfg.d_head * 2
+    info = dict(build_cache_s=build_s, decode_ms_per_token=(t2 - t1) * 1e3 / (LM_TOKENS - 1),
+                decode_tokens_per_s=LM_BATCH * (LM_TOKENS - 1) / (t2 - t1),
+                bf16_decode_ms_per_token=bf16_ms,
+                resident_bytes=resident, peak_bytes=peak, launches_by_route=routes,
+                cache_bytes=nbytes, bf16_cache_bytes=bf16_bytes,
+                cache_ratio=nbytes / bf16_bytes, profile=trace, quantize_host_us=quantize_us)
+    log(f"lm int8: {cfg.name} over the int8 KV cache, {LM_BATCH} x {LM_PROMPT}-token prompts, "
+        f"{LM_TOKENS - 1} decode steps fed the bf16 run's tokens: decode "
+        f"{info['decode_ms_per_token']:.2f} ms/token (the bf16 leg's, earlier: "
+        f"{bf16_ms:.2f}), peak_GiB={peak / 2**30:.3f} "
+        f"resident_GiB={resident / 2**30:.3f}; cache {nbytes / 1e9:.3f} GB against "
+        f"{bf16_bytes / 1e9:.3f} GB in bf16 (ratio {info['cache_ratio']:.4f}); B7 launches "
+        f"by route {routes}; _quantize_kv of a layer's k and v rows {quantize_us:.1f} us "
+        f"on the host")
+
+    # the check: impl='torch' from a copy of the same cache, the same tokens
+    steps_err, near_ties = [], 0
+    for i in range(1, LM_TOKENS):
+        ref, copy = TR.decode_step(plainq, params, copy, ref_tokens[i - 1], LM_PROMPT + i)
+        err = float((logits[i] - ref).abs().max())
+        steps_err.append(dict(step=i, err=err, bound=bounds[i]))
+        if err > bounds[i]:
+            raise AssertionError(f"lm int8: step {i}: max |logit diff| {err} against "
+                                 f"impl='torch' > the bf16 leg's bound {bounds[i]}")
+        top2 = ref.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > bounds[i]
+        if bool((decided & (logits[i].argmax(-1) != ref.argmax(-1))).any()):
+            raise AssertionError(f"lm int8: step {i}: a greedy token differs from "
+                                 f"impl='torch' where the top-1/top-2 gap exceeds {bounds[i]}")
+        near_ties += int((~decided).sum())
+    del copy, ref
+    worst = max(steps_err, key=lambda st: st["err"] / st["bound"])
+    agree = int((logits.argmax(-1) == ref_tokens).sum())
+    soft = max(float((torch.softmax(logits[i], -1) - torch.softmax(ref_logits[i], -1))
+                     .abs().max()) for i in range(LM_TOKENS))
+    info.update(teacher_forced=steps_err, max_err_over_bound=worst["err"] / worst["bound"],
+                tokens_within_bound_of_a_tie=near_ties, greedy_agree_with_bf16=agree,
+                greedy_tokens=LM_TOKENS * LM_BATCH, max_softmax_dist_from_bf16=soft)
+    log(f"lm int8: impl='torch' from a copy of the same cache: worst step {worst['step']} "
+        f"max |logit diff| {worst['err']:.4g} against the bf16 leg's bound "
+        f"{worst['bound']:.4g}; greedy tokens agree where the gap exceeds it ({near_ties} "
+        f"within it); against the bf16 cache run: {agree} of {LM_TOKENS * LM_BATCH} greedy "
+        f"tokens equal, post-softmax distance at most {soft:.4g}")
+    calls = b7_calls(cfgq, params, prompts, cache, ref_tokens,
+                     {0: "decode,local,int8", 5: "decode,global,int8"}, prefill=False)
+    del cache, logits
+    return info, calls
+
+
+def int8_entries(calls: dict, launches: int) -> list:
+    """B7's int8 decode lines: the kernel against ``attention_int8_plain`` on
+    the int8 leg's operands, timed by ``model_entry``.  Bound: bytes (q and
+    the output in bf16, the visible int8 K/V rows and their bfloat16
+    scales) over HBM; operations 4 D per visible query-key pair and one
+    dequantizing multiply an element read, at the float32 rate.  Library: SDPA
+    over a bf16 copy of the visible rows, dequantized beforehand (no PyTorch
+    call both dequantizes and attends); checked at 2e-2 (bf16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    entries = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for variant, (q, k8, v8, kw) in calls.items():
+        rest = {o: x for o, x in kw.items() if o != "scales"}
+        sk, sv = kw["scales"]
+        B, Hq, Sq, D = q.shape
+        Hkv, Sk = k8.shape[1], k8.shape[2]
+        lo, hi = FA.visible_rows(Sq, Sk, True, kw.get("window"), kw.get("q_offset", 0))
+        rows = hi - lo
+        nbytes = 2 * q.numel() * q.element_size() + 2 * B * Hkv * rows * (D + 2)
+        flops = 4.0 * D * B * Hq * Sq * rows + 2.0 * B * Hkv * rows * D
+        kd = FA.dequantize_kv(k8[:, :, lo:hi], sk[:, :, lo:hi]).to(q.dtype)
+        vd = FA.dequantize_kv(v8[:, :, lo:hi], sv[:, :, lo:hi]).to(q.dtype)
+        e = model_entry(
+            "flash_attention_decode_int8", variant,
+            lambda: FA.flash_attention(q, k8, v8, **kw),
+            lambda: FA.attention_int8_plain(q, k8, v8, sk, sv, **rest),
+            {"sdpa_dequantized_bf16": lambda: F.scaled_dot_product_attention(
+                q, kd, vd, enable_gqa=True)},
+            nbytes, flops, F32_FLOP_PER_S, 1e-3, 2.0 ** -7, launches, library_tol=2e-2)
+        splits, chunk = FA.decode_splits(B, Hkv, rows, sms)
+        e.update(kernel_route="decode_int8", visible_rows=rows, splits=splits, chunk=chunk,
+                 blocks=B * Hkv * splits)
+        log(f"kernels: {e['name']} walks {rows} int8 rows in {splits} splits of {chunk}: "
+            f"{B * Hkv * splits} blocks on {sms} SMs")
+        entries.append(e)
+        del kd, vd
+    return entries
+
+
+def b7_calls(cfg, params, prompts, cache, tokens, capture: dict,
+             prefill: bool = True) -> dict:
+    """B7's operands on the serve path, {variant: (q, k, v, options)}: the
+    prefill's calls at the layers ``capture`` names ({layer: 'prefill,...'})
+    unless ``prefill`` is false, and the last decode step's at the same
+    layers ('decode,...')."""
+    from repro_torch.models import transformer as TR
+
+    calls = {}
+    if prefill:
+        with AttentionCapture(capture) as cap:
+            TR.prefill(cfg, params, prompts, LM_PROMPT + LM_TOKENS)
+        args = cap.check(cfg.n_layers, "prefill")
+        calls = {capture[i]: args[i] for i in capture}
     with AttentionCapture(capture) as cap:           # idempotent: rewrites the last row
         TR.decode_step(cfg, params, cache, tokens[LM_TOKENS - 2], LM_PROMPT + LM_TOKENS - 1)
     args = cap.check(cfg.n_layers, "decode step")
@@ -3103,6 +3304,60 @@ def phase_gnn() -> tuple:
 
 
 # =========================================================================
+# the architecture registry: every config's smoke on the card
+# =========================================================================
+def phase_registry() -> dict:
+    """``load_arch(a).smoke()`` for every id of ``ARCH_IDS`` on the card
+    (the default device): each must be ok, with a finite loss where it has
+    one; granite-ldbc's engine counts must equal its oracle's
+    (``RefEngine``).  Each smoke's kernel launches are read from the
+    counters, set to 0 just before it."""
+    import importlib
+    import math
+
+    from repro_torch.configs import ARCH_IDS, load_arch
+    from repro_torch.kernels import bucket_scatter as BS
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import hop_scatter as HK
+
+    counters = (FA, BS, EB, HK)
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in ARCH_IDS:
+        spec = load_arch(arch)
+        for mod in counters:
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        res = spec.smoke()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items() if v}
+        if not res.get("ok") or ("loss" in res and not math.isfinite(res["loss"])):
+            raise AssertionError(f"registry: {arch} smoke failed: {res}")
+        smoke = getattr(importlib.import_module(
+            f"repro_torch.configs.{arch.replace('-', '_')}"), "SMOKE", None)
+        attention = None
+        if spec.family.startswith("lm"):
+            attention = "cuda" if smoke.d_head in FA.HEAD_DIMS else \
+                f"plain (SMOKE d_head {smoke.d_head} has no kernel)"
+            # a SMOKE width B7 was built for must run on it
+            if attention == "cuda" and not launches.get("flash_attention"):
+                raise AssertionError(f"registry: {arch}'s SMOKE has d_head {smoke.d_head}, "
+                                     f"which B7 takes, and never launched it: {launches}")
+        out[arch] = dict(family=spec.family, s=dt, launches=launches, attention=attention,
+                         **{k: list(v) if isinstance(v, tuple) else v for k, v in res.items()})
+        log(f"registry: {arch} ({spec.family}) ok"
+            + (f" loss={res['loss']:.6g}" if "loss" in res else "")
+            + (f" counts (engine, oracle) {res['counts']}" if "counts" in res else "")
+            + (f" attention {attention}" if attention else "")
+            + f" launches {launches} in {dt:.2f}s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"registry: {len(ARCH_IDS)} smokes ok; phase {out['wall_s']:.1f}s")
+    return out
+
+
+# =========================================================================
 # training: MiniCPM-2B at full width
 # =========================================================================
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
@@ -3360,6 +3615,8 @@ def main(argv=None) -> int:
     lap("dlrm")
     REPORT["gnn"], gnn_kernels = phase_gnn()
     lap("gnn")
+    REPORT["registry"] = phase_registry()
+    lap("registry")
     kernels += lm_kernels + olmoe_kernels + dlrm_kernels + gnn_kernels
     free_memory()
     REPORT["train"] = phase_train()

@@ -5,8 +5,18 @@
 import dataclasses
 
 from ..models.gnn import EGNNCfg
+from . import common
 from .common import GNN_SHAPES
 
 CONFIG = EGNNCfg()
 SMOKE = dataclasses.replace(CONFIG, n_layers=2)
 SHAPES = GNN_SHAPES
+
+
+def get_arch() -> common.ArchSpec:
+    return common.ArchSpec(
+        arch_id="egnn", family="gnn-equivariant",
+        shapes=common.pending_cells("egnn", GNN_SHAPES), skip={},
+        smoke=lambda device=None: common.gnn_smoke("egnn", CONFIG, device=device),
+        meta={},
+    )

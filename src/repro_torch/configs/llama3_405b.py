@@ -1,9 +1,9 @@
 """Llama-3 405B — dense GQA transformer [arXiv:2407.21783].
 
 126L, d_model 16384, 128 heads (GQA kv=8), d_ff 53248, vocab 128256.
-``CONFIG`` is configuration only: 405 B parameters do not fit one card.
-``SMOKE`` is the reference's reduced variant (2 layers, width 64, GQA 8:2,
-float32).
+Pure full attention: long_500k is skipped.  ``CONFIG`` is configuration
+only: 405 B parameters do not fit one card.  ``SMOKE`` is the reference's
+reduced variant (2 layers, width 64, GQA 8:2, float32).
 """
 import dataclasses
 
@@ -25,8 +25,14 @@ SMOKE = dataclasses.replace(
 )
 
 
-def get_arch() -> common.ArchMeta:
-    return common.ArchMeta(
+def get_arch() -> common.ArchSpec:
+    return common.ArchSpec(
         arch_id="llama3-405b", family="lm-dense",
+        shapes=common.pending_cells("llama3-405b", ("train_4k", "prefill_32k", "decode_32k")),
+        skip={"long_500k": "pure full attention (assignment rule)"},
+        # SMOKE's d_head 8 has no attention kernel (they take 16 to 256):
+        # the smoke's attention is the plain version, on either device
+        smoke=lambda device=None: common.lm_smoke(dataclasses.replace(SMOKE, impl="torch"),
+                                                  device=device),
         meta=dict(params=CONFIG.param_count(), opt=OptCfg(schedule="cosine")),
     )

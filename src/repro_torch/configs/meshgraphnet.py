@@ -5,8 +5,18 @@
 import dataclasses
 
 from ..models.gnn import MGNCfg
+from . import common
 from .common import GNN_SHAPES
 
 CONFIG = MGNCfg()
 SMOKE = dataclasses.replace(CONFIG, n_layers=2)
 SHAPES = GNN_SHAPES
+
+
+def get_arch() -> common.ArchSpec:
+    return common.ArchSpec(
+        arch_id="meshgraphnet", family="gnn-mpnn",
+        shapes=common.pending_cells("meshgraphnet", GNN_SHAPES), skip={},
+        smoke=lambda device=None: common.gnn_smoke("meshgraphnet", CONFIG, device=device),
+        meta={},
+    )

@@ -24,9 +24,15 @@ SMOKE = dataclasses.replace(
 )
 
 
-def get_arch() -> common.ArchMeta:
-    return common.ArchMeta(
+def get_arch() -> common.ArchSpec:
+    return common.ArchSpec(
         arch_id="minicpm-2b", family="lm-dense",
+        shapes=common.pending_cells("minicpm-2b", ("train_4k", "prefill_32k", "decode_32k")),
+        skip={"long_500k": "pure full attention (assignment rule)"},
+        # SMOKE's d_head 12 has no attention kernel (they take 16 to 256):
+        # the smoke's attention is the plain version, on either device
+        smoke=lambda device=None: common.lm_smoke(dataclasses.replace(SMOKE, impl="torch"),
+                                                  device=device),
         meta=dict(params=CONFIG.param_count(),
                   opt=OptCfg(schedule="wsd", total_steps=10_000)),
     )

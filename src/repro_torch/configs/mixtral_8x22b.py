@@ -2,7 +2,8 @@
 [arXiv:2401.04088].
 
 56L, d_model 6144, 48 heads (GQA kv=8), d_head 128, per-expert d_ff 16384,
-vocab 32768, window 4096.  ``CONFIG`` is configuration only: its
+vocab 32768, window 4096 (long_500k runs: rolling-window attention is
+sub-quadratic).  ``CONFIG`` is configuration only: its
 140,428,744,704 parameters (281 GB in bf16) do not fit one card.  ``SMOKE`` is the
 reference's reduced variant (2 layers, width 64, GQA 8:2, 4 experts top-2,
 window 8, float32).
@@ -29,8 +30,15 @@ SMOKE = dataclasses.replace(
 )
 
 
-def get_arch() -> common.ArchMeta:
-    return common.ArchMeta(
+def get_arch() -> common.ArchSpec:
+    return common.ArchSpec(
         arch_id="mixtral-8x22b", family="lm-moe-swa",
+        shapes=common.pending_cells("mixtral-8x22b", ("train_4k", "prefill_32k", "decode_32k",
+                                                      "long_500k")),
+        skip={},
+        # SMOKE's d_head 8 has no attention kernel (they take 16 to 256):
+        # the smoke's attention is the plain version, on either device
+        smoke=lambda device=None: common.lm_smoke(dataclasses.replace(SMOKE, impl="torch"),
+                                                  device=device),
         meta=dict(params=CONFIG.param_count(), active_params=CONFIG.active_param_count()),
     )

@@ -26,8 +26,11 @@ SMOKE = dataclasses.replace(
 )
 
 
-def get_arch() -> common.ArchMeta:
-    return common.ArchMeta(
+def get_arch() -> common.ArchSpec:
+    return common.ArchSpec(
         arch_id="olmoe-1b-7b", family="lm-moe",
+        shapes=common.pending_cells("olmoe-1b-7b", ("train_4k", "prefill_32k", "decode_32k")),
+        skip={"long_500k": "pure full attention (assignment rule)"},
+        smoke=lambda device=None: common.lm_smoke(SMOKE, device=device),
         meta=dict(params=CONFIG.param_count(), active_params=CONFIG.active_param_count()),
     )

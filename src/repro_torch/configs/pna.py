@@ -6,8 +6,18 @@
 import dataclasses
 
 from ..models.gnn import PNACfg
+from . import common
 from .common import GNN_SHAPES
 
 CONFIG = PNACfg()
 SMOKE = dataclasses.replace(CONFIG, n_layers=2)
 SHAPES = GNN_SHAPES
+
+
+def get_arch() -> common.ArchSpec:
+    return common.ArchSpec(
+        arch_id="pna", family="gnn-spmm",
+        shapes=common.pending_cells("pna", GNN_SHAPES), skip={},
+        smoke=lambda device=None: common.gnn_smoke("pna", CONFIG, device=device),
+        meta={},
+    )

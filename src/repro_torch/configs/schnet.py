@@ -5,8 +5,18 @@
 import dataclasses
 
 from ..models.gnn import SchNetCfg
+from . import common
 from .common import GNN_SHAPES
 
 CONFIG = SchNetCfg()
 SMOKE = dataclasses.replace(CONFIG, n_interactions=2)
 SHAPES = GNN_SHAPES
+
+
+def get_arch() -> common.ArchSpec:
+    return common.ArchSpec(
+        arch_id="schnet", family="gnn-molecular",
+        shapes=common.pending_cells("schnet", GNN_SHAPES), skip={},
+        smoke=lambda device=None: common.gnn_smoke("schnet", CONFIG, device=device),
+        meta={},
+    )

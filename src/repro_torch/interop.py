@@ -9,6 +9,11 @@ parameters the reference package runs on:
   query_from_dict(d)     a ``PathQuery`` from ``dataclasses.asdict`` of a
                          reference query
   transformer_params_from_arrays(cfg, tree)
+  kv_cache_from_arrays(cfg, cache)
+                         the port's LM decode cache from the reference's:
+                         the (k, v) pair in ``cfg.dtype``, or with
+                         ``cfg.kv_cache_quant`` the int8 4-tuple (k8, v8,
+                         bfloat16 k_scale, v_scale)
   dlrm_params_from_arrays(cfg, tree)
                          the port's model parameters from the reference's
                          parameter tree as numpy arrays (same layout, so no
@@ -111,6 +116,24 @@ def transformer_params_from_arrays(cfg, tree: Mapping,
     if "head" in tree:
         out["head"] = _tensor(tree["head"], cfg.dtype, dev)
     return out
+
+
+def kv_cache_from_arrays(cfg, cache, device: Optional[Union[str, torch.device]] = None):
+    """The port's decode cache (``models/transformer.py``) from the
+    reference's as numpy arrays: (k, v) [L, B, Hkv, Smax, Dh] cast to
+    ``cfg.dtype``, or, where ``cfg.kv_cache_quant``, (k8, v8, k_scale,
+    v_scale) with int8 rows and bfloat16 scales [L, B, Hkv, Smax], each value
+    as it is."""
+    dev = resolve_device(device)
+    want = 4 if cfg.kv_cache_quant else 2
+    if len(cache) != want:
+        raise ValueError(f"kv_cache_quant={cfg.kv_cache_quant} takes a {want}-tuple, "
+                         f"got {len(cache)}")
+    if want == 2:
+        return tuple(_tensor(a, cfg.dtype, dev) for a in cache)
+    k8, v8, sk, sv = cache
+    rows = [torch.from_numpy(np.array(a, np.int8)).to(dev) for a in (k8, v8)]
+    return (*rows, _tensor(sk, torch.bfloat16, dev), _tensor(sv, torch.bfloat16, dev))
 
 
 def dlrm_params_from_arrays(cfg, tree: Mapping,

@@ -56,6 +56,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                              _L, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
                              _I, _P, _P),
     },
+    "flash_decode_int8": {
+        "flash_decode_int8_fwd": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                  _L, _L, _P, _P, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,
+                                  _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    },
     "embedding_bag": {
         "embedding_bags_fwd": (_P, _P, _I, _I, _P, _L, _I, _I, _P, _L, _P),
     },
@@ -85,7 +90,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, of
+    every header of ``csrc/`` (a source may include one) and of the flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

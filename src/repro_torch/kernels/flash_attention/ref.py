@@ -4,7 +4,9 @@
 ``kernels/flash_attention/ref.py::attention_ref``: float32 scores, the masks
 from absolute positions, a full softmax (fully masked rows give 0), output
 in ``q.dtype``.  It is the CPU path of ``flash_attention`` and the card's
-oracle for the kernels.  ``decode_attention_split_plain`` is the decode
+oracle for the kernels.  ``attention_int8_plain`` is the same over an int8
+KV cache, dequantized first as the reference's decode does.
+``decode_attention_split_plain`` is the decode
 kernel's arithmetic written out (a softmax per split of the visible rows,
 then the merge), so that the CPU tests hold that decomposition to the JAX
 package.
@@ -46,6 +48,26 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bkgqs,bksd->bkgqd", p / denom, v.float())
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def dequantize_kv(x8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Float32 rows of an int8 cache: ``x8`` [..., S, D] times its bfloat16
+    per-row ``scale`` [..., S], one float32 multiply an element (the
+    reference's ``qk8.astype(f32) * sk.astype(f32)[..., None]``)."""
+    return x8.float() * scale.float()[..., None]
+
+
+def attention_int8_plain(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+                         k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         sm_scale: Optional[float] = None,
+                         q_offset: int = 0) -> torch.Tensor:
+    """``attention_plain`` over an int8 KV cache: k8, v8 [B, Hkv, Sk, D] int8
+    with bfloat16 scales [B, Hkv, Sk], dequantized by ``dequantize_kv``;
+    output in ``q.dtype``."""
+    return attention_plain(q, dequantize_kv(k8, k_scale), dequantize_kv(v8, v_scale),
+                           causal=causal, window=window, sm_scale=sm_scale,
+                           q_offset=q_offset)
 
 
 def visible_rows(Sq: int, Sk: int, causal: bool, window: Optional[int],

@@ -16,7 +16,12 @@ each with capacity ``C = max(1, int(cf * K * S / E))``; tokens past an
 expert's capacity are dropped, never rerouted.  Its expert products are
 batched matrix products, as the reference's are (no kernel).
 
-Not ported here (ROADMAP A11): the int8 KV cache and sharding.
+The int8 KV cache (``kv_cache_quant``) is the reference's: per (token,
+head) symmetric int8 rows with bfloat16 scales, written by ``decode_step``
+and read by the attention kernel's int8 decode route; ``prefill`` returns
+the float cache, as the reference's does.
+
+Not ported here (ROADMAP A11): sharding.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ from .layers import apply_rope, cross_entropy_loss, dense_init, rms_norm
 FULL_WINDOW = 1 << 30
 
 Params = Dict
-Cache = Tuple[torch.Tensor, torch.Tensor]
+#: (k, v) in ``cfg.dtype``, or with ``kv_cache_quant`` (k8, v8, k_scale, v_scale)
+Cache = Tuple[torch.Tensor, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +78,7 @@ class TransformerCfg:
     global_every: int = 0                  # 0: uniform; k: every k-th layer full
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
-    kv_cache_quant: bool = False           # not ported: ROADMAP A11
+    kv_cache_quant: bool = False           # int8 KV cache w/ per-token-head scales
     impl: str = "cuda"                     # 'cuda' (the kernel) | 'torch' (plain)
     remat: bool = True                     # training: recompute each layer in backward
     remat_inner: bool = False              # training: recompute attention chunks, MoE layers
@@ -81,8 +87,6 @@ class TransformerCfg:
     def __post_init__(self):
         if self.moe is not None and not isinstance(self.moe, MoECfg):
             raise TypeError(f"moe must be a MoECfg, not {type(self.moe).__name__}")
-        if self.kv_cache_quant:
-            raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP A11)")
         check_impl(self.impl)
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
@@ -359,23 +363,46 @@ def loss_fn(cfg: TransformerCfg, params: Params, batch: Dict[str, torch.Tensor])
 # -------------------------------------------------------------------- serve
 def init_cache(cfg: TransformerCfg, batch: int, max_len: int,
                device: Optional[Union[str, torch.device]] = None) -> Cache:
-    """Zeroed (k, v) caches, each [L, B, Hkv, max_len, Dh] in ``cfg.dtype``."""
+    """Zeroed (k, v) caches, each [L, B, Hkv, max_len, Dh] in ``cfg.dtype``;
+    with ``cfg.kv_cache_quant`` (k8, v8, k_scale, v_scale): int8 caches of
+    that shape and bfloat16 scales [L, B, Hkv, max_len]."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
+    if cfg.kv_cache_quant:
+        return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.bfloat16, device=dev))
     return (torch.zeros(shape, dtype=cfg.dtype, device=dev),
             torch.zeros(shape, dtype=cfg.dtype, device=dev))
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 of x [..., Dh], the reference's: scale
+    = max(max|x| / 127, 1e-8) in float32, q = clip(round(x / scale), -127,
+    127); returns (q int8, scale as bfloat16 [...]).  Both divisions are
+    true divisions by a tensor (CUDA's division by a Python number is a
+    multiply by its reciprocal, an ulp off at times, and one ulp of scale
+    flips a round at .5)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1)
+    scale = (scale / scale.new_full((), 127.0)).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
 
 
 def prefill(cfg: TransformerCfg, params: Params, tokens: torch.Tensor,
             max_len: int) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt tokens [B, S]; return (float32 logits of the last
     position [B, V], the cache with the prompt's rotated keys and values in
-    rows 0..S-1 and zeros up to ``max_len``)."""
+    rows 0..S-1 and zeros up to ``max_len``).  The cache is (k, v) in
+    ``cfg.dtype`` whatever ``kv_cache_quant`` says, as the reference's."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
     x = _embed(cfg, params, tokens)
-    ck, cv = init_cache(cfg, B, max_len, device=x.device)
+    ck, cv = init_cache(dataclasses.replace(cfg, kv_cache_quant=False), B, max_len,
+                        device=x.device)
     positions = torch.arange(S, device=x.device).expand(B, S)
     for i, w in enumerate(cfg.layer_windows()):
         lp = _layer(params, i)
@@ -389,26 +416,66 @@ def prefill(cfg: TransformerCfg, params: Params, tokens: torch.Tensor,
     return logits, (ck, cv)
 
 
+def quantize_cache(cache: Cache, rows: int) -> Cache:
+    """The int8 cache (k8, v8, k_scale, v_scale) of a float (k, v) cache,
+    such as ``prefill`` returns: its rows 0..rows-1 quantized layer by layer
+    by ``_quantize_kv``.  Scales are per (token, head), so these are the
+    rows ``decode_step`` with ``kv_cache_quant`` writes for those keys; the
+    rows from ``rows`` on stay 0 for it to fill."""
+    ck, cv = cache
+    L, B, Hkv, max_len, Dh = ck.shape
+    if not 0 <= rows <= max_len:
+        raise ValueError(f"rows {rows} outside 0..{max_len}")
+    out = (torch.zeros(ck.shape, dtype=torch.int8, device=ck.device),
+           torch.zeros(ck.shape, dtype=torch.int8, device=ck.device),
+           torch.zeros(ck.shape[:-1], dtype=torch.bfloat16, device=ck.device),
+           torch.zeros(ck.shape[:-1], dtype=torch.bfloat16, device=ck.device))
+    for i in range(L):
+        for src, q8, s8 in ((ck, out[0], out[2]), (cv, out[1], out[3])):
+            q8[i, :, :, :rows], s8[i, :, :, :rows] = _quantize_kv(src[i, :, :, :rows])
+    return out
+
+
 def decode_step(cfg: TransformerCfg, params: Params, cache: Cache,
                 tokens: torch.Tensor, cache_len: int) -> Tuple[torch.Tensor, Cache]:
     """One decode step.  tokens [B]; ``cache_len`` = tokens so far, this one
     included (it sits at position ``cache_len - 1``).  Returns (float32
     logits [B, V], cache).  The cache is updated in place (row
     ``cache_len - 1`` of every layer) and returned, where the reference
-    returns a new one: that saves a copy of the whole cache per token."""
-    ck, cv = cache
+    returns a new one: that saves a copy of the whole cache per token.
+
+    With ``cfg.kv_cache_quant`` the cache is (k8, v8, k_scale, v_scale): the
+    new rows are quantized (``_quantize_kv``) and written with their scales
+    before the attention, so the token attends to its own quantized row, as
+    in the reference."""
+    ck, cv = cache[:2]
+    if len(cache) != (4 if cfg.kv_cache_quant else 2):
+        raise ValueError(f"a {'quantized' if cfg.kv_cache_quant else 'float'} cache is a "
+                         f"{4 if cfg.kv_cache_quant else 2}-tuple, got {len(cache)}")
     if not 1 <= cache_len <= ck.shape[3]:
         raise ValueError(f"cache_len {cache_len} outside 1..{ck.shape[3]}")
     B = tokens.shape[0]
     pos = cache_len - 1
     x = _embed(cfg, params, tokens)[:, None, :]
     positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    if cfg.kv_cache_quant:   # row pos of every layer of k8, v8, k_scale, v_scale
+        new_rows = [t[:, :, :, pos] for t in cache]
     for i, w in enumerate(cfg.layer_windows()):
         lp = _layer(params, i)
         q, k, v = _qkv(cfg, lp, x, positions)
-        ck[i, :, :, pos] = k[:, :, 0]
-        cv[i, :, :, pos] = v[:, :, 0]
-        o = FA.decode_attention(q, ck[i], cv[i], cache_len, window=_window(w), impl=cfg.impl)
+        scales = None
+        if cfg.kv_cache_quant:
+            # k and v quantized in one pass: the scales are per row, so this
+            # equals two calls
+            q8, s8 = _quantize_kv(torch.stack((k[:, :, 0], v[:, :, 0])))
+            for row, new in zip(new_rows, (*q8.unbind(0), *s8.unbind(0))):
+                row[i].copy_(new)
+            scales = (cache[2][i], cache[3][i])
+        else:
+            ck[i, :, :, pos] = k[:, :, 0]
+            cv[i, :, :, pos] = v[:, :, 0]
+        o = FA.decode_attention(q, ck[i], cv[i], cache_len, window=_window(w),
+                                scales=scales, impl=cfg.impl)
         x = _mlp(cfg, lp, _attn_out(cfg, lp, x, o))
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = (x[:, 0] @ _head(params).to(cfg.dtype)).float()

@@ -23,7 +23,10 @@ Attention: atol = rtol = 2e-5 in float32 (the tolerance of
 bf16 rounding of the output, tighter than that sweep's 2e-2, since kernel and
 plain version both sum in float32 (the tensor-core route also rounds p to
 bf16 before P V, which moves each term by at most 2^-9 of its weight).
-Each attention test also checks which of the three routes launched.  EmbeddingBag: atol 1e-5
+Each attention test also checks which of the three routes launched.
+The int8 KV cache's decode (bf16 or float32 q, int8 K/V, bfloat16 scales)
+at the same tolerances against ``attention_int8_plain``, whose dequantized
+elements the kernel's equal: only the summation order differs.  EmbeddingBag: atol 1e-5
 against the plain version (exact at one row a bag), and the table-batched
 launch bit-equal to its single-table calls.  Segment-sum
 (B5): small integers are exact in any order (``torch.equal``); normal
@@ -723,6 +726,86 @@ def test_flash_attention_refuses_bad_operands(dev):
     odd = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
     with pytest.raises(ValueError):
         FA.flash_attention(q, odd, q)                                # unaligned base
+
+
+def _int8_cache(seed, shape, dev, n_valid):
+    """An int8 cache layer as the transformer hands it over (layer 1 of a
+    [2, ...] cache) and its bfloat16 scales (0.001 to 0.051); the scales of
+    rows past ``n_valid`` are NaN, so a read of one shows in the output."""
+    rng = np.random.default_rng(seed)
+    x8 = torch.from_numpy(rng.integers(-127, 128, size=(2, *shape)).astype(np.int8)).to(dev)
+    s = torch.from_numpy((rng.random((2, *shape[:-1])) * 0.05 + 1e-3).astype(np.float32))
+    s[..., n_valid:] = float("nan")
+    return x8[1], s.to(dev, torch.bfloat16)[1]
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 16])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("cache_len", [1, 777, 1500])
+def test_decode_attention_int8(dev, D, group, window, cache_len):
+    """The decode kernel over an int8 cache (bf16 q) against its plain
+    version (dequantize, then ``attention_plain``), on the decode route,
+    counted under 'decode' and 'decode_int8'; rows past cache_len (their
+    scales NaN) are never read."""
+    B, Hkv, Smax = 2, 2, 1500
+    q = _normal(40, (B, Hkv * group, 1, D), dev, torch.bfloat16)
+    k8, sk = _int8_cache(41, (B, Hkv, Smax, D), dev, cache_len)
+    v8, sv = _int8_cache(42, (B, Hkv, Smax, D), dev, cache_len)
+    before = _launched("decode") + (FA.LAUNCHES["flash_attention_decode_int8"],)
+    out = FA.decode_attention(q, k8, v8, cache_len, window=window, scales=(sk, sv))
+    torch.cuda.synchronize()
+    _check_route(before[:2], "decode")
+    assert FA.LAUNCHES["flash_attention_decode_int8"] == before[2] + 1
+    n = cache_len
+    want = FA.attention_int8_plain(q, k8[:, :, :n], v8[:, :, :n], sk[..., :n], sv[..., :n],
+                                   causal=True, window=window, q_offset=n - 1)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("Sq,group", [(1, 2), (4, 4), (16, 1)])
+def test_decode_attention_int8_f32_queries(dev, Sq, group):
+    """Float32 q over the int8 cache (the SMOKE configs' dtype), several
+    query rows a kv head."""
+    B, Hkv, Sk, D = 2, 2, 600, 128
+    q = _normal(43, (B, Hkv * group, Sq, D), dev, torch.float32)
+    k8, sk = _int8_cache(44, (B, Hkv, Sk, D), dev, Sk)
+    v8, sv = _int8_cache(45, (B, Hkv, Sk, D), dev, Sk)
+    out = FA.flash_attention(q, k8, v8, causal=True, window=50, q_offset=Sk - Sq,
+                             scales=(sk, sv))
+    torch.cuda.synchronize()
+    want = FA.attention_int8_plain(q, k8, v8, sk, sv, causal=True, window=50,
+                                   q_offset=Sk - Sq)
+    torch.testing.assert_close(out, want, **_tol(torch.float32))
+
+
+def test_int8_cache_off_the_decode_route_raises(dev):
+    """An int8 call the decode kernel cannot take raises under impl='cuda',
+    with nothing launched: more than 16 query rows a kv head, a head width
+    not built, an unaligned row, scales of the wrong type or shape, no
+    scales."""
+    k8, sk = _int8_cache(46, (1, 1, 64, 64), dev, 64)
+    scales = (sk, sk)
+    n0 = dict(FA.LAUNCHES)
+    with pytest.raises(ValueError, match="decode route"):
+        FA.flash_attention(torch.zeros(1, 4, 8, 64, device=dev, dtype=torch.bfloat16),
+                           k8, k8, scales=scales)
+    k32, s32 = _int8_cache(47, (1, 1, 64, 32), dev, 64)
+    with pytest.raises(ValueError, match="not built"):
+        FA.decode_attention(torch.zeros(1, 2, 1, 32, device=dev), k32, k32, 8,
+                            scales=(s32, s32))
+    q = torch.zeros(1, 2, 1, 64, device=dev, dtype=torch.bfloat16)
+    odd = torch.zeros(64 * 64 + 8, device=dev, dtype=torch.int8)[8:].view(1, 1, 64, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.decode_attention(q, odd, odd, 8, scales=scales)
+    with pytest.raises(TypeError):
+        FA.decode_attention(q, k8, k8, 8, scales=(sk.float(), sk.float()))
+    with pytest.raises(ValueError):
+        FA.decode_attention(q, k8, k8, 8, scales=(sk[..., :32], sk[..., :32]))
+    with pytest.raises(TypeError, match="scales"):
+        FA.decode_attention(q, k8, k8, 8)
+    assert dict(FA.LAUNCHES) == n0
 
 
 # =========================================================================

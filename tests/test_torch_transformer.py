@@ -267,8 +267,8 @@ def test_init_params_shapes_and_scale():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A11"):
-        dataclasses.replace(TG.SMOKE, kv_cache_quant=True)
+    # the int8 KV cache is ported (tests/test_torch_kv_quant.py): it constructs
+    assert dataclasses.replace(TG.SMOKE, kv_cache_quant=True).kv_cache_quant
     # MoE is ported (tests/test_torch_moe.py): a moe that is not a MoECfg is refused
     with pytest.raises(TypeError, match="MoECfg"):
         dataclasses.replace(TG.SMOKE, moe=object())
