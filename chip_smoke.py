@@ -268,6 +268,23 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                path is plain PyTorch, as the reference's reaches no Pallas
                kernel.
 
+  11. dryrun   the dry run (``launch/dryrun.py --all --mesh both --jobs 4``:
+               every architecture's shape cells traced on the ``meta``
+               device, 82 records and 6 skipped) in a child process on the host,
+               started just before the train phase and joined after it; it
+               fails unless the summary reads ok=82 skipped=6 errors=0.
+               Then the whole-step rooflines: the gemma3-4b prefill, a
+               decode step over the bf16 and the int8 cache, the OLMoE
+               prefill, the MiniCPM-2B train step, DLRM's bulk serve and the
+               agg-min static main-path job, each the same call at the same
+               shapes on ``meta`` counted by ``roofline.analysis.
+               count_program`` (at mesh 1 x 1): FLOPs by dtype, bytes, the
+               bound at the H100's peaks and what bounds it, the ms this
+               script measured and the share (bound / measured), with the
+               card's name and power limit.  B7's global prefill call
+               counted on ``meta`` must equal its kernel line's bytes,
+               operations and bound.  No step is timed again.
+
 Phase 6 also holds TimeWarp (B6), which no path of either package reaches,
 equal to its plain version through its entry point, on every vertex's
 lifespan of the main graph, its 16 bucket edges and the per-vertex bucket
@@ -307,9 +324,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
-F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+# the H100's peaks and the kernels' work formulas: one copy, the dry run's
+from repro_torch.roofline.analysis import (BF16_FLOP_PER_S, F32_FLOP_PER_S,  # noqa: E402
+                                           attention_int8_work, attention_work, bound,
+                                           embedding_bags_work)
+
 EXACT = float(2 ** 24)
 PERSONS = 100_000             # full size; a cut changes this and is listed in PERF.md
 SEED = 1
@@ -476,12 +495,6 @@ def identical(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
     if not (got.shape == want.shape and torch.equal(ng, nw) and torch.equal(got[~ng], want[~nw])
             and torch.equal(torch.signbit(got[~ng]), torch.signbit(want[~nw]))):
         raise AssertionError(f"{what}: kernel and plain version differ")
-
-
-def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S) -> tuple:
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / flop_rate * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def tree_map(fn, tree):
@@ -2167,21 +2180,6 @@ class AttentionCapture:
         return self.args
 
 
-def attention_work(q, k, kw) -> tuple:
-    """(bytes that must move, visible query-key pairs) of one attention call:
-    q and the output once, and the K/V rows some query row sees."""
-    B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    pos = np.arange(Sq, dtype=np.int64) + kw.get("q_offset", 0)
-    hi = np.minimum(pos + 1, Sk) if kw.get("causal", True) else np.full(Sq, Sk)
-    w = kw.get("window")
-    lo = np.maximum(pos - w + 1, 0) if w is not None else np.zeros(Sq, np.int64)
-    pairs = int(np.maximum(hi - lo, 0).sum()) * B * Hq
-    rows = int(max(hi.max() - lo.min(), 0))
-    nbytes = q.element_size() * (2 * B * Hq * Sq * D + 2 * B * Hkv * rows * D)
-    return nbytes, pairs
-
-
 def attention_library(q, k, v, kw) -> dict:
     """``F.scaled_dot_product_attention`` (GQA) as a yardstick, which the port
     never calls: {"sdpa_mask": SDPA with the call's mask as a tensor}, and,
@@ -2597,8 +2595,7 @@ def int8_entries(calls: dict, launches: int) -> list:
         Hkv, Sk = k8.shape[1], k8.shape[2]
         lo, hi = FA.visible_rows(Sq, Sk, True, kw.get("window"), kw.get("q_offset", 0))
         rows = hi - lo
-        nbytes = 2 * q.numel() * q.element_size() + 2 * B * Hkv * rows * (D + 2)
-        flops = 4.0 * D * B * Hq * Sq * rows + 2.0 * B * Hkv * rows * D
+        nbytes, flops = attention_int8_work(q, k8, kw)
         kd = FA.dequantize_kv(k8[:, :, lo:hi], sk[:, :, lo:hi]).to(q.dtype)
         vd = FA.dequantize_kv(v8[:, :, lo:hi], sv[:, :, lo:hi]).to(q.dtype)
         e = model_entry(
@@ -3025,14 +3022,13 @@ def phase_dlrm() -> tuple:
     idx = calls["serve_bulk"][1][:, 0, :].contiguous()
     n_bags = idx.shape[0]
     uniq = int(torch.unique(idx[idx >= 0]).numel())
-    nbytes = 4.0 * (idx.numel() + uniq * cfg.embed_dim + n_bags * cfg.embed_dim)
+    nbytes, flops = embedding_bags_work(n_bags, idx.shape[1], cfg.embed_dim, [uniq])
     idx_long = idx.long()
     entry = model_entry("embedding_bag", f"sum,B={n_bags}",
                         lambda: EB.embedding_bag(table, idx, "sum"),
                         lambda: EB.embedding_bag_plain(table, idx, "sum"),
                         lambda: F.embedding_bag(idx_long, table, mode="sum"),
-                        nbytes, float(idx.numel() * cfg.embed_dim), F32_FLOP_PER_S,
-                        2e-5, 2e-5, launches)
+                        nbytes, flops, F32_FLOP_PER_S, 2e-5, 2e-5, launches)
     del idx_long
     entries = [entry, dlrm_batched_entry(EB, params["tables"], calls["serve_bulk"][1], launches)]
     del params, calls
@@ -3062,10 +3058,8 @@ def dlrm_batched_entry(EB, tables, idx, launches: int) -> dict:
                              "its single-table calls")
     identical(got, EB.embedding_bags_plain(tables, idx, "sum"), "kernel embedding_bag[tables]")
     del got
-    nbytes = 0.0
-    for c in cols:
-        uniq = int(torch.unique(c[c >= 0]).numel())
-        nbytes += 4.0 * (c.numel() + uniq * D + n_bags * D)
+    nbytes, flops = embedding_bags_work(n_bags, L, D, [int(torch.unique(c[c >= 0]).numel())
+                                                       for c in cols])
     vocabs = [t.shape[0] for t in tables]
     packed = torch.cat(tables)
     offs = torch.tensor([0] + vocabs[:-1], device=idx.device).cumsum(0)
@@ -3074,8 +3068,7 @@ def dlrm_batched_entry(EB, tables, idx, launches: int) -> dict:
                     lambda: EB.embedding_bags(tables, idx, "sum"),
                     lambda: EB.embedding_bags_plain(tables, idx, "sum"),
                     lambda: F.embedding_bag(shifted, packed, mode="sum").view(n_bags, n_tab, D),
-                    nbytes, float(idx.numel() * D), F32_FLOP_PER_S, 0.0, 0.0, launches,
-                    library_tol=2e-5)
+                    nbytes, flops, F32_FLOP_PER_S, 0.0, 0.0, launches, library_tol=2e-5)
     del packed, shifted
     e.update(tables=n_tab, singles_host_us=host_us(singles), singles_ms=time_ms(singles),
              singles_b2b_ms=b2b_ms(singles))
@@ -3558,6 +3551,182 @@ def phase_train() -> dict:
     return info
 
 
+# =========================================================================
+# the dry run and whole-step rooflines
+# =========================================================================
+DRYRUN_MESH = "both"          # single pod and multi-pod, both from one trace a cell
+DRYRUN_JOBS = 4               # its worker processes: done well inside the train phase
+DRYRUN_OUT = ROOT / "build" / "dryrun"
+DRYRUN_WANT = "ok=82 skipped=6 errors=0"
+DRYRUN_JOB = ("agg-min", 0)   # the main-path job counted: template, mode (static)
+
+
+def dryrun_start() -> tuple:
+    """``launch/dryrun.py --all --mesh both --jobs DRYRUN_JOBS`` in a child
+    process on the host (no card: its tensors are all on ``meta``), writing
+    its records under build/dryrun/ and its output to build/dryrun.log.
+    Returns (process, log file, start time)."""
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    DRYRUN_OUT.mkdir(parents=True)
+    out = open(ROOT / "build" / "dryrun.log", "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                             "--mesh", DRYRUN_MESH, "--jobs", str(DRYRUN_JOBS),
+                             "--out", str(DRYRUN_OUT)],
+                            stdout=out, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    return proc, out, time.perf_counter()
+
+
+def meta_twin(tree):
+    """Tensors of a tree of dicts and tuples as ``meta`` tensors of the same
+    shapes, strides and dtypes."""
+    if isinstance(tree, dict):
+        return {k: meta_twin(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(meta_twin(v) for v in tree)
+    return torch.empty_strided(tree.shape, tree.stride(), dtype=tree.dtype, device="meta")
+
+
+def main_job_twin(graph, jobs, rows) -> dict:
+    """The main-path job ``DRYRUN_JOB`` as the dense executor runs it, on
+    ``meta`` twins of the graph's device arrays, with its timed row."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import query as Q
+
+    t, mode = DRYRUN_JOB
+    j = next(i for i, (name, m, _, _) in enumerate(jobs) if name == t and m == mode)
+    _, _, split, batch = jobs[j]
+    row = rows[j]
+    if row["engine"] != "dense":
+        raise AssertionError(f"dryrun: main job {t} ran on the {row['engine']} executor")
+    params = np.stack([Q.query_params(q) for q in batch])
+    return dict(qry=batch[0], split=split, mode=mode, row=row,
+                gdev=meta_twin(E.prepare_gdev(graph, "cuda")),
+                params=torch.empty(params.shape, dtype=torch.int32, device="meta"),
+                bedges=meta_twin(E.bucket_edges_for(graph, 16, "cuda")))
+
+
+def whole_steps(job: dict) -> list:
+    """(name, shape, the call on meta, measured ms, where the ms comes from)
+    for the steps the script times: each the same call at the same shapes
+    on ``meta`` tensors, at mesh 1 x 1."""
+    from repro_torch.configs import dlrm_rm2, gemma3_4b, minicpm_2b, olmoe_1b_7b
+    from repro_torch.core import engine as E
+    from repro_torch.models import dlrm as DM
+    from repro_torch.models import transformer as TR
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.train_loop import make_train_step
+
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    max_len = LM_PROMPT + LM_TOKENS
+    prompts = meta((LM_BATCH, LM_PROMPT), torch.long)
+    toks = meta((LM_BATCH,), torch.long)
+    n = LM_PROMPT + LM_TOKENS // 2           # the middle of the timed decode steps
+    g = gemma3_4b.CONFIG
+    gp = TR.init_shapes(g)
+    cshape = (g.n_layers, LM_BATCH, g.n_kv_heads, max_len, g.d_head)
+    cache = (meta(cshape, g.dtype), meta(cshape, g.dtype))
+    cache8 = (meta(cshape, torch.int8), meta(cshape, torch.int8),
+              meta(cshape[:-1], torch.bfloat16), meta(cshape[:-1], torch.bfloat16))
+    g8 = dataclasses.replace(g, kv_cache_quant=True)
+    o = olmoe_1b_7b.CONFIG
+    op = TR.init_shapes(o)
+    m = minicpm_2b.CONFIG
+    mp = TR.init_shapes(m)
+    ms = init_state(mp)
+    mb = dict(tokens=meta((TRAIN_BATCH, TRAIN_SEQ), torch.int32),
+              labels=meta((TRAIN_BATCH, TRAIN_SEQ), torch.int32))
+    train = make_train_step(lambda p, b: TR.loss_fn(m, p, b), minicpm_2b.get_arch().meta["opt"])
+    train_ms = float(np.median([r["ms"] for r in REPORT["train"]["steps"]
+                                if r["microbatches"] == 1 and not r["first_call"]]))
+    d = dlrm_rm2.CONFIG
+    dp = DM.init_shapes(d)
+    B = dlrm_rm2.SHAPES["serve_bulk"]["batch"]
+    dense, sparse = meta((B, d.n_dense), torch.float32), meta((B, d.n_sparse, d.multi_hot),
+                                                               torch.int32)
+    row = job["row"]
+    return [
+        ("gemma3-4b prefill", f"{LM_BATCH} x {LM_PROMPT}",
+         lambda: TR.prefill(g, gp, prompts, max_len), REPORT["lm"]["prefill_ms"], "lm prefill"),
+        ("gemma3-4b decode step", f"{LM_BATCH} x 1, cache_len {n} of {max_len}",
+         lambda: TR.decode_step(g, gp, cache, toks, n), REPORT["lm"]["decode_ms_per_token"],
+         "lm decode ms/token"),
+        ("gemma3-4b decode step int8", f"{LM_BATCH} x 1, cache_len {n} of {max_len}",
+         lambda: TR.decode_step(g8, gp, cache8, toks, n),
+         REPORT["lm"]["int8"]["decode_ms_per_token"], "lm int8 decode ms/token"),
+        ("olmoe-1b-7b prefill", f"{LM_BATCH} x {LM_PROMPT}",
+         lambda: TR.prefill(o, op, prompts, max_len), REPORT["olmoe"]["prefill_ms"],
+         "olmoe prefill"),
+        ("minicpm-2b train step", f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat {m.remat}",
+         lambda: train(mp, ms, mb), train_ms, "train: median of the timed steps"),
+        ("dlrm-rm2 serve", f"batch {B}", lambda: DM.serve_score(d, dp, dense, sparse),
+         REPORT["dlrm"]["shapes"]["serve_bulk"]["median_ms_of_10"], "dlrm serve_bulk median"),
+        (f"main {row['template']} {row['mode']}", f"Q={row['batch']}, split {job['split']}",
+         lambda: E.execute_plan(job["gdev"], job["qry"], job["split"], job["mode"], 16,
+                                job["params"], job["bedges"], impl="cuda"),
+         row["cuda_ms"], "main cuda_ms"),
+    ]
+
+
+def phase_dryrun(dry: tuple, job: dict, kernels: list, smi: str) -> dict:
+    """(a) joins the dry run's child (``dryrun_start``): its summary must
+    read ``DRYRUN_WANT``; (b) counts each whole step of ``whole_steps`` on
+    ``meta`` with ``roofline.analysis.count_program`` and prints its FLOPs
+    by dtype, bytes, bound at the H100's peaks (the larger of the compute
+    and memory terms) and what bounds it, the measured ms and the share
+    (bound / measured); (c) counts B7's global prefill call on ``meta`` and
+    holds its bytes, operations and bound to that row of the kernel table."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.roofline import analysis as RA
+
+    proc, out, t0 = dry
+    rc = proc.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    out.close()
+    text = (ROOT / "build" / "dryrun.log").read_text()
+    summary = next((ln for ln in text.splitlines() if ln.startswith("DRYRUN SUMMARY")), None)
+    log(f"dryrun: launch/dryrun.py --all --mesh {DRYRUN_MESH} --jobs {DRYRUN_JOBS} in a child "
+        f"process: rc {rc}, "
+        f"{summary}; wall {wall:.1f}s from its start (before the train phase)")
+    if rc != 0 or summary != f"DRYRUN SUMMARY: {DRYRUN_WANT}":
+        raise AssertionError(f"dryrun: want '{DRYRUN_WANT}' and rc 0; the log's tail: "
+                             f"{text[-2000:]}")
+    info = dict(rc=rc, summary=summary, child_wall_s=wall, card=smi, steps=[])
+    for name, shape, fn, ms, source in whole_steps(job):
+        c = RA.count_program(fn, ())
+        t_c, t_m = c.compute_s(), c.memory_s()
+        bound_ms, by = (t_c * 1e3, "operations") if t_c >= t_m else (t_m * 1e3, "bytes")
+        st = dict(name=name, shape=shape, flops=c.flops, bytes=c.bytes, ops=c.ops,
+                  kernels=c.kernels, bound_ms=bound_ms, bound_by=by, compute_ms=t_c * 1e3,
+                  memory_ms=t_m * 1e3, measured_ms=ms, measured=source, share=bound_ms / ms,
+                  trace_s=c.seconds)
+        info["steps"].append(st)
+        log(f"roofline: {name} [{shape}]: flops bf16 {c.flops['bf16']:.4e} f32 "
+            f"{c.flops['f32']:.4e}, bytes {c.bytes:.4e}; bound {bound_ms:.4f} ms ({by}; "
+            f"compute {t_c * 1e3:.4f}, memory {t_m * 1e3:.4f}); measured {ms:.4f} ms "
+            f"({source}); share {bound_ms / ms:.4f}; {smi}")
+    # B7's global prefill: the dry run's count of one call against its kernel line
+    from repro_torch.configs.gemma3_4b import CONFIG as g
+
+    row = next(e for e in kernels if e["name"] == "flash_attention_tc[prefill,global]")
+    q = torch.empty((LM_BATCH, g.n_heads, LM_PROMPT, g.d_head), dtype=g.dtype, device="meta")
+    kv = torch.empty((LM_BATCH, g.n_kv_heads, LM_PROMPT, g.d_head), dtype=g.dtype,
+                     device="meta")
+    c = RA.count_program(lambda: FA.flash_attention(q, kv, kv, causal=True, window=None), ())
+    b_ms, b_by = bound(c.bytes, c.flops["bf16"], BF16_FLOP_PER_S)
+    if (c.bytes, c.flops["bf16"], b_ms, b_by) != (row["bytes"], row["flops"], row["bound_ms"],
+                                                  row["bound_by"]):
+        raise AssertionError(f"dryrun: the count of B7's global prefill ({c.bytes}, {c.flops}, "
+                             f"{b_ms}) differs from its kernel line ({row['bytes']}, "
+                             f"{row['flops']}, {row['bound_ms']})")
+    info["kernel_row_check"] = dict(name=row["name"], bytes=c.bytes, flops=c.flops["bf16"],
+                                    bound_ms=b_ms)
+    log(f"dryrun: the count of B7's global prefill equals its kernel line: bytes "
+        f"{c.bytes:.6g}, operations {c.flops['bf16']:.6g}, bound {b_ms:.4f} ms ({b_by})")
+    return info
+
+
 def main(argv=None) -> int:
     warnings.filterwarnings("ignore", message="Sparse")
     warnings.filterwarnings("ignore", message="Warning: Profiler clears events")
@@ -3605,6 +3774,7 @@ def main(argv=None) -> int:
         for phase in ("serve", "live"):
             if base in REPORT[phase]["launches"]:
                 e[f"{phase}_launches"] = REPORT[phase]["launches"][base]
+    job = main_job_twin(graph, jobs, REPORT["main"]["rows"])
     del rec, graph, jobs, served
     free_memory()
     REPORT["lm"], lm_kernels = phase_lm()
@@ -3619,8 +3789,17 @@ def main(argv=None) -> int:
     lap("registry")
     kernels += lm_kernels + olmoe_kernels + dlrm_kernels + gnn_kernels
     free_memory()
-    REPORT["train"] = phase_train()
-    lap("train")
+    dry = dryrun_start()           # on the host, beside the device-bound train phase
+    try:
+        REPORT["train"] = phase_train()
+        lap("train")
+        REPORT["dryrun"] = phase_dryrun(dry, job, kernels, smi)
+        lap("dryrun")
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+        dry[1].close()
     REPORT["kernels"] = kernels
     REPORT["wall_s"] = time.perf_counter() - t_start
     report = Path(args.report)

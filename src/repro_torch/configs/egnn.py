@@ -3,6 +3,7 @@
 ``SMOKE`` keeps every width and cuts the depth to 2 layers.
 """
 import dataclasses
+from functools import partial
 
 from ..models.gnn import EGNNCfg
 from . import common
@@ -16,7 +17,8 @@ SHAPES = GNN_SHAPES
 def get_arch() -> common.ArchSpec:
     return common.ArchSpec(
         arch_id="egnn", family="gnn-equivariant",
-        shapes=common.pending_cells("egnn", GNN_SHAPES), skip={},
+        shapes={name: partial(common.gnn_cell, "egnn", CONFIG, name)
+                for name in GNN_SHAPES}, skip={},
         smoke=lambda device=None: common.gnn_smoke("egnn", CONFIG, device=device),
         meta={},
     )

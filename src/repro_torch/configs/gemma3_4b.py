@@ -6,6 +6,7 @@ layers are sub-quadratic; decode against the long cache).  ``SMOKE`` is the
 reference's reduced variant (6 layers, width 64, float32, window 8).
 """
 import dataclasses
+from functools import partial
 
 import torch
 
@@ -28,8 +29,8 @@ SMOKE = dataclasses.replace(
 def get_arch() -> common.ArchSpec:
     return common.ArchSpec(
         arch_id="gemma3-4b", family="lm-dense-swa",
-        shapes=common.pending_cells("gemma3-4b", ("train_4k", "prefill_32k", "decode_32k",
-                                                  "long_500k")),
+        shapes={name: partial(common.lm_cell, CONFIG, name)
+                for name in ("train_4k", "prefill_32k", "decode_32k", "long_500k")},
         skip={}, smoke=lambda device=None: common.lm_smoke(SMOKE, device=device),
         meta=dict(params=CONFIG.param_count()),
     )

@@ -6,6 +6,7 @@ only: 405 B parameters do not fit one card.  ``SMOKE`` is the reference's
 reduced variant (2 layers, width 64, GQA 8:2, float32).
 """
 import dataclasses
+from functools import partial
 
 import torch
 
@@ -28,7 +29,8 @@ SMOKE = dataclasses.replace(
 def get_arch() -> common.ArchSpec:
     return common.ArchSpec(
         arch_id="llama3-405b", family="lm-dense",
-        shapes=common.pending_cells("llama3-405b", ("train_4k", "prefill_32k", "decode_32k")),
+        shapes={name: partial(common.lm_cell, CONFIG, name)
+                for name in ("train_4k", "prefill_32k", "decode_32k")},
         skip={"long_500k": "pure full attention (assignment rule)"},
         # SMOKE's d_head 8 has no attention kernel (they take 16 to 256):
         # the smoke's attention is the plain version, on either device

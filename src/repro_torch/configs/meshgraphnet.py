@@ -3,6 +3,7 @@
 ``SMOKE`` keeps every width and cuts the depth to 2 layers.
 """
 import dataclasses
+from functools import partial
 
 from ..models.gnn import MGNCfg
 from . import common
@@ -16,7 +17,8 @@ SHAPES = GNN_SHAPES
 def get_arch() -> common.ArchSpec:
     return common.ArchSpec(
         arch_id="meshgraphnet", family="gnn-mpnn",
-        shapes=common.pending_cells("meshgraphnet", GNN_SHAPES), skip={},
+        shapes={name: partial(common.gnn_cell, "meshgraphnet", CONFIG, name)
+                for name in GNN_SHAPES}, skip={},
         smoke=lambda device=None: common.gnn_smoke("meshgraphnet", CONFIG, device=device),
         meta={},
     )

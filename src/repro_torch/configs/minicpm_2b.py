@@ -5,6 +5,7 @@ tied embeddings: 2,724,880,896 parameters.  ``SMOKE`` is the reference's
 reduced variant (2 layers, width 72, float32).
 """
 import dataclasses
+from functools import partial
 
 import torch
 
@@ -25,9 +26,13 @@ SMOKE = dataclasses.replace(
 
 
 def get_arch() -> common.ArchSpec:
+    shapes = {"train_4k": partial(common.lm_cell, CONFIG, "train_4k",
+                                  opt_cfg=OptCfg(schedule="wsd", total_steps=10_000))}
+    shapes.update({name: partial(common.lm_cell, CONFIG, name)
+                   for name in ("prefill_32k", "decode_32k")})
     return common.ArchSpec(
         arch_id="minicpm-2b", family="lm-dense",
-        shapes=common.pending_cells("minicpm-2b", ("train_4k", "prefill_32k", "decode_32k")),
+        shapes=shapes,
         skip={"long_500k": "pure full attention (assignment rule)"},
         # SMOKE's d_head 12 has no attention kernel (they take 16 to 256):
         # the smoke's attention is the plain version, on either device

@@ -9,6 +9,7 @@ reference's reduced variant (2 layers, width 64, GQA 8:2, 4 experts top-2,
 window 8, float32).
 """
 import dataclasses
+from functools import partial
 
 import torch
 
@@ -33,8 +34,8 @@ SMOKE = dataclasses.replace(
 def get_arch() -> common.ArchSpec:
     return common.ArchSpec(
         arch_id="mixtral-8x22b", family="lm-moe-swa",
-        shapes=common.pending_cells("mixtral-8x22b", ("train_4k", "prefill_32k", "decode_32k",
-                                                      "long_500k")),
+        shapes={name: partial(common.lm_cell, CONFIG, name)
+                for name in ("train_4k", "prefill_32k", "decode_32k", "long_500k")},
         skip={},
         # SMOKE's d_head 8 has no attention kernel (they take 16 to 256):
         # the smoke's attention is the plain version, on either device

@@ -6,6 +6,7 @@ active a token.  ``SMOKE`` is the reference's reduced variant (2 layers,
 width 64, 8 experts top-2, float32).
 """
 import dataclasses
+from functools import partial
 
 import torch
 
@@ -29,7 +30,8 @@ SMOKE = dataclasses.replace(
 def get_arch() -> common.ArchSpec:
     return common.ArchSpec(
         arch_id="olmoe-1b-7b", family="lm-moe",
-        shapes=common.pending_cells("olmoe-1b-7b", ("train_4k", "prefill_32k", "decode_32k")),
+        shapes={name: partial(common.lm_cell, CONFIG, name)
+                for name in ("train_4k", "prefill_32k", "decode_32k")},
         skip={"long_500k": "pure full attention (assignment rule)"},
         smoke=lambda device=None: common.lm_smoke(SMOKE, device=device),
         meta=dict(params=CONFIG.param_count(), active_params=CONFIG.active_param_count()),

@@ -4,6 +4,7 @@
 ``SMOKE`` keeps every width and cuts the depth to 2 layers.
 """
 import dataclasses
+from functools import partial
 
 from ..models.gnn import PNACfg
 from . import common
@@ -17,7 +18,8 @@ SHAPES = GNN_SHAPES
 def get_arch() -> common.ArchSpec:
     return common.ArchSpec(
         arch_id="pna", family="gnn-spmm",
-        shapes=common.pending_cells("pna", GNN_SHAPES), skip={},
+        shapes={name: partial(common.gnn_cell, "pna", CONFIG, name)
+                for name in GNN_SHAPES}, skip={},
         smoke=lambda device=None: common.gnn_smoke("pna", CONFIG, device=device),
         meta={},
     )

@@ -3,6 +3,7 @@
 ``SMOKE`` keeps every width and cuts the depth to 2 interactions.
 """
 import dataclasses
+from functools import partial
 
 from ..models.gnn import SchNetCfg
 from . import common
@@ -16,7 +17,8 @@ SHAPES = GNN_SHAPES
 def get_arch() -> common.ArchSpec:
     return common.ArchSpec(
         arch_id="schnet", family="gnn-molecular",
-        shapes=common.pending_cells("schnet", GNN_SHAPES), skip={},
+        shapes={name: partial(common.gnn_cell, "schnet", CONFIG, name)
+                for name in GNN_SHAPES}, skip={},
         smoke=lambda device=None: common.gnn_smoke("schnet", CONFIG, device=device),
         meta={},
     )

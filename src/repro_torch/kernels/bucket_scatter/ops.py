@@ -64,10 +64,11 @@ class ScatterLayout:
 def build_layout(seg_ids: torch.Tensor, num_segments: int) -> ScatterLayout:
     """The layout of ``seg_ids`` (sorted ascending, each in
     ``[0, num_segments)``), built on its device by a binary search of every
-    segment's first edge."""
+    segment's first edge.  On the ``meta`` device there are no values to
+    check."""
     seg_ids = torch.as_tensor(seg_ids)
     E = seg_ids.shape[0]
-    if E and not bool((seg_ids[0] >= 0) & (seg_ids[-1] < num_segments)
+    if E and not seg_ids.is_meta and not bool((seg_ids[0] >= 0) & (seg_ids[-1] < num_segments)
                       & (seg_ids[1:] >= seg_ids[:-1]).all()):
         raise ValueError("seg_ids must be sorted and within [0, num_segments)")
     bounds = torch.arange(num_segments + 1, device=seg_ids.device, dtype=seg_ids.dtype)

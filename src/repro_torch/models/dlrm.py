@@ -6,7 +6,11 @@ here one ``kernels.embedding_bags`` call (one launch) looks up all of them,
 straight into the interaction's input.  ``retrieval_score`` scores one query
 against N candidate embeddings as one matrix-vector product and a top-k.
 ``loss_fn`` is the training loss; its gradient runs the plain version
-(``impl='torch'``), as the reference's runs ``'xla'``.
+(``impl='torch'``), as the reference's runs ``'xla'``.  ``init_shapes`` and
+``param_specs`` give the parameter tree on the ``meta`` device and its
+partition specs for the dry run: tables row-sharded over ``model`` where
+the mesh's ``model`` size divides the vocabulary, everything else
+replicated.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 
 from ..kernels.common import check_impl, resolve_device
 from ..kernels.embedding_bag import ops as EB
+from ..launch.mesh import P
 from .layers import mlp_apply, mlp_params
 
 Params = Dict
@@ -71,6 +76,35 @@ def init_params(cfg: DLRMCfg, generator: torch.Generator,
     return dict(tables=tables,
                 bot=mlp_params(generator, list(cfg.bot_mlp), device=dev),
                 top=mlp_params(generator, top_sizes, device=dev))
+
+
+def _mlp_shapes(sizes: Sequence[int]) -> List[Dict]:
+    return [dict(w=(sizes[i], sizes[i + 1]), b=(sizes[i + 1],)) for i in range(len(sizes) - 1)]
+
+
+def init_shapes(cfg: DLRMCfg) -> Params:
+    """``init_params``'s tree as ``meta`` tensors: the shapes and dtypes,
+    with nothing drawn or stored."""
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    mlp = lambda sizes: [{k: meta(v, torch.float32) for k, v in lyr.items()}
+                         for lyr in _mlp_shapes(sizes)]
+    return dict(tables=[meta((v, cfg.embed_dim), cfg.dtype) for v in cfg.vocabs()],
+                bot=mlp(list(cfg.bot_mlp)),
+                top=mlp([cfg.interaction_dim()] + list(cfg.top_mlp)[1:]))
+
+
+def param_specs(cfg: DLRMCfg, mesh=None) -> Params:
+    """Partition specs mirroring ``init_params``: each table row-sharded over
+    ``model`` where the mesh's ``model`` size divides its rows, the MLPs
+    replicated.  ``mesh=None``: every leaf replicated."""
+    def tspec(v):
+        if mesh is None or v % mesh.shape["model"]:
+            return P(None, None)
+        return P("model", None)   # row-sharded tables
+
+    rep = lambda sizes: [{k: P() for k in lyr} for lyr in _mlp_shapes(sizes)]
+    return dict(tables=[tspec(v) for v in cfg.vocabs()], bot=rep(list(cfg.bot_mlp)),
+                top=rep([cfg.interaction_dim()] + list(cfg.top_mlp)[1:]))
 
 
 def _bags(cfg: DLRMCfg, params: Params, sparse_idx: torch.Tensor,

@@ -35,7 +35,9 @@ Device = Optional[Union[str, torch.device]]
 class GraphBatch:
     """A graph's arrays.  Edges given in any order are put in destination
     order by one stable permutation of ``edge_src``, ``edge_dst`` and
-    ``edge_feat``; ``layout`` is their CSR row pointer."""
+    ``edge_feat``; ``layout`` is their CSR row pointer.  On the ``meta``
+    device (the dry run) the arrays hold no values: the edges are taken in
+    the order given, as the reference takes them."""
     node_feat: torch.Tensor                      # [N, F]
     edge_src: torch.Tensor                       # [E]
     edge_dst: torch.Tensor                       # [E]
@@ -48,7 +50,7 @@ class GraphBatch:
 
     def __post_init__(self):
         dst = self.edge_dst
-        if dst.numel() > 1 and not bool((dst[1:] >= dst[:-1]).all()):
+        if dst.numel() > 1 and not dst.is_meta and not bool((dst[1:] >= dst[:-1]).all()):
             order = torch.argsort(dst, stable=True)
             self.edge_src, self.edge_dst = self.edge_src[order], dst[order]
             if self.edge_feat is not None:

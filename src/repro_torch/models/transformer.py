@@ -21,7 +21,10 @@ head) symmetric int8 rows with bfloat16 scales, written by ``decode_step``
 and read by the attention kernel's int8 decode route; ``prefill`` returns
 the float cache, as the reference's does.
 
-Not ported here (ROADMAP A11): sharding.
+``init_shapes`` gives the parameter tree as tensors on the ``meta`` device
+(shapes and dtypes, nothing drawn) and ``param_specs`` / ``cache_specs``
+their partition specs on a mesh (``launch/mesh.py``): the reference's rules
+for its dry run.  The port itself runs on one card; it shards nothing.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import check_impl, resolve_device
 from ..kernels.flash_attention import ops as FA
+from ..launch.mesh import P, data_axes_of
 from .layers import apply_rope, cross_entropy_loss, dense_init, rms_norm
 
 FULL_WINDOW = 1 << 30
@@ -157,6 +161,100 @@ def init_params(cfg: TransformerCfg, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["head"] = dense_init(generator, (D, cfg.vocab), D, dt, dev)
     return params
+
+
+def _param_shapes(cfg: TransformerCfg) -> Dict:
+    """The shape of every leaf of ``init_params``'s tree."""
+    D, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    layers = dict(ln1=(L, D), ln2=(L, D), wq=(L, D, Hq * Dh), wk=(L, D, Hkv * Dh),
+                  wv=(L, D, Hkv * Dh), wo=(L, Hq * Dh, D))
+    if cfg.moe:
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
+        layers.update(router=(L, D, E), wg=(L, E, D, Fe), wu=(L, E, D, Fe),
+                      wd=(L, E, Fe, D))
+    else:
+        layers.update(wg=(L, D, cfg.d_ff), wu=(L, D, cfg.d_ff), wd=(L, cfg.d_ff, D))
+    shapes = dict(embed=(V, D), ln_f=(D,), layers=layers)
+    if not cfg.tie_embeddings:
+        shapes["head"] = (D, V)
+    return shapes
+
+
+def init_shapes(cfg: TransformerCfg) -> Params:
+    """``init_params``'s tree as ``meta`` tensors in ``cfg.dtype``: the shapes
+    and dtypes, with nothing drawn or stored."""
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        return torch.empty(x, dtype=cfg.dtype, device="meta")
+
+    return leaf(_param_shapes(cfg))
+
+
+def _divides(mesh, n: int, axis):
+    """``axis`` (a name or a tuple of names) where its mesh size divides
+    ``n``, else None (replicated)."""
+    names = axis if isinstance(axis, tuple) else (axis,)
+    return axis if n % int(np.prod([mesh.shape[a] for a in names])) == 0 else None
+
+
+def param_specs(cfg: TransformerCfg, mesh=None) -> Dict:
+    """Partition specs mirroring ``init_params``: FSDP over the mesh's data
+    axes × tensor parallelism over ``model`` (a dimension is split only where
+    the axes' size divides it); MoE weights expert-parallel over ``model``
+    where it divides the experts, else tensor-parallel inside each expert.
+    ``mesh=None``: every leaf replicated."""
+    if mesh is None:
+        def rep(x):
+            return {k: rep(v) for k, v in x.items()} if isinstance(x, dict) else P()
+        return rep(_param_shapes(cfg))
+    dp, tp = data_axes_of(mesh), "model"
+    div = lambda n, axis: _divides(mesh, n, axis)
+    Hq, Hkv, Dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    layers = dict(
+        ln1=P(None, None),
+        ln2=P(None, None),
+        wq=P(None, div(D, dp), div(Hq * Dh, tp)),
+        wk=P(None, div(D, dp), div(Hkv * Dh, tp)),
+        wv=P(None, div(D, dp), div(Hkv * Dh, tp)),
+        wo=P(None, div(Hq * Dh, tp), div(D, dp)),
+    )
+    if cfg.moe:
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
+        e_ax = div(E, tp)
+        if e_ax is not None:   # expert parallelism over the model axis
+            layers.update(router=P(None, None, None),
+                          wg=P(None, e_ax, div(D, dp), None),
+                          wu=P(None, e_ax, div(D, dp), None),
+                          wd=P(None, e_ax, None, div(D, dp)))
+        else:                  # tensor-parallel inside each expert
+            layers.update(router=P(None, None, None),
+                          wg=P(None, None, div(D, dp), div(Fe, tp)),
+                          wu=P(None, None, div(D, dp), div(Fe, tp)),
+                          wd=P(None, None, div(Fe, tp), div(D, dp)))
+    else:
+        F_ = cfg.d_ff
+        layers.update(wg=P(None, div(D, dp), div(F_, tp)),
+                      wu=P(None, div(D, dp), div(F_, tp)),
+                      wd=P(None, div(F_, tp), div(D, dp)))
+    specs = dict(embed=P(div(cfg.vocab, tp), None), ln_f=P(None), layers=layers)
+    if not cfg.tie_embeddings:
+        specs["head"] = P(None, div(cfg.vocab, tp))
+    return specs
+
+
+def cache_specs(cfg: TransformerCfg, mesh=None) -> P:
+    """The partition spec of a [L, B, Hkv, Smax, Dh] cache: batch over the
+    data axes, kv heads over ``model`` where it divides them, else d_head
+    (scores and outputs then recombine with a small all-reduce).
+    ``mesh=None``: replicated."""
+    if mesh is None:
+        return P()
+    dp = data_axes_of(mesh)
+    if cfg.n_kv_heads % max(mesh.shape["model"], 1) == 0:
+        return P(None, dp, "model", None, None)
+    return P(None, dp, None, None, "model")   # shard d_head instead
 
 
 def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:

@@ -3,8 +3,8 @@
 ``ARCH_IDS`` in the reference's order; for every id, ``load_arch``'s family,
 skipped shapes and their reasons, shape names and ``meta`` (parameter and
 active-parameter counts, the ``OptCfg`` compared field by field) equal to
-the reference's, and every shape cell raising ``NotImplementedError`` until
-the dry-run slice.  Every smoke ``ok`` with a finite loss on the CPU, as
+the reference's (the shape cells themselves: ``test_torch_dryrun.py``).
+Every smoke ``ok`` with a finite loss on the CPU, as
 ``tests/test_arch_smoke.py`` checks the reference's.  Granite: the shapes'
 split, mode and aggregation and both queries' ``query_params`` rows, the
 analytic operation counts (equal as floats), the ``GRANITE_DRYRUN_SCALE=small``
@@ -52,15 +52,6 @@ def test_arch_spec_matches_the_reference(arch_id):
     assert _meta(got.meta) == _meta(want.meta)
     if got.family.startswith("lm"):   # every LM declares the four shapes, run or skipped
         assert set(got.shapes) | set(got.skip) == set(common.LM_SHAPES)
-
-
-@pytest.mark.parametrize("arch_id", ARCH_IDS)
-def test_shape_cells_wait_for_the_dry_run(arch_id):
-    spec = load_arch(arch_id)
-    assert spec.shapes
-    for name, cell in spec.shapes.items():
-        with pytest.raises(NotImplementedError, match="dry-run slice"):
-            cell(None)
 
 
 @pytest.mark.parametrize("arch_id", ARCH_IDS)

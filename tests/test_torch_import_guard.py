@@ -54,7 +54,9 @@ def test_every_module_imports_with_jax_and_the_reference_blocked():
               "repro_torch.serving.scheduler", "repro_torch.obs.trace",
               "repro_torch.launch.query", "repro_torch.core.engine_partitioned",
               "repro_torch.graphdata.partitioner", "repro_torch.graphdata.ingest",
-              "repro_torch.serving.epochs", "repro_torch.obs.audit"):
+              "repro_torch.serving.epochs", "repro_torch.obs.audit",
+              "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+              "repro_torch.roofline", "repro_torch.roofline.analysis"):
         assert m in modules, m
     code = f"""
 import importlib, sys
