@@ -10,6 +10,23 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
   3. oracle    on a small LDBC graph, the port on the card (impl='cuda')
                against the port's pure-Python oracle (core/ref_engine.py):
                Q1-Q8 and the MIN/MAX shapes in static mode, exact
+  3a. examples the examples and developer drivers (DRIVERS:
+               ``examples/torch_{quickstart,serve_decode,train_lm}.py``,
+               ``scripts/torch_smoke_{engine,workload}.py``, the train
+               example for 20 steps into a directory under build/ that it
+               deletes) with ``--device cuda``, one after another in one
+               child process (``--drivers``, OMP_NUM_THREADS=1), started
+               after phase 3 and joined in phase 4 once the main graph is
+               made on the host, before its upload: the card is the
+               child's alone while the parent generates.  The child loads
+               the libraries phase 2 built and builds none.  A line
+               ``examples: <file> rc 0, N s`` a driver with its kernel
+               launches (B1-B3 for the engine drivers, B7's routes for the
+               serve example), the B1-B3 launches over the engine drivers,
+               and ``examples: join waited N s``.  It fails if a driver
+               raises or lacks its pass line, if B1 or B3 never launched
+               in the engine drivers, or if the serve example did not
+               launch B7's simt and decode routes.
   4. main      the main path at full width: an LDBC graph of PERSONS
                persons (100,000; zipf degrees, dynamic properties,
                16 time buckets), the Q1-Q8 workload through
@@ -92,11 +109,13 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
                peak beside resident memory and the caches.  Every served
                query must be done, and every group's answer equal to
                ``execute_batch_out`` at its split on impl='torch' (bit-equal
-               below 2^24, rtol 1e-6 at or above, counted).  Then ``python -m
-               repro_torch.launch.query --persons 1000 --dynamic --queries 2
-               --serve --verify`` must exit 0 and print ``verification vs
-               oracle: OK``, and so must the same command with ``--engine
-               partitioned``; the two run side by side.
+               below 2^24, rtol 1e-6 at or above, counted).  Then ``python
+               examples/torch_temporal_queries.py --persons 1000 --dynamic
+               --queries 2 --serve --verify`` (the example runs ``launch/
+               query.py``'s CLI) must exit 0 and print ``verification vs
+               oracle: OK``, and so must ``python -m repro_torch.launch.query``
+               with the same flags and ``--engine partitioned``; the two run
+               side by side.
   6c. live     live graphs on the main graph (``graphdata/ingest.py``,
                ``serving/epochs.py``, the scheduler's ``pin_epoch`` and its
                base+delta dispatch): ``log_from_graph`` holds out a tenth of
@@ -607,6 +626,134 @@ def phase_oracle() -> None:
     REPORT["oracle"] = dict(persons=200, templates_with_matches=int(n_nonzero))
 
 
+# =========================================================================
+# the examples and the developer drivers, in a child process while the main
+# graph is made on the host
+# =========================================================================
+DRIVERS_CKPT = ROOT / "build" / "drivers_train_ckpt"   # made and deleted by the child
+DRIVERS_LOG = ROOT / "build" / "drivers.log"
+DRIVERS_WAIT_S = 600          # the longest the join waits for the child
+#: (file, extra arguments, lines its output must hold, the kernel counters read)
+DRIVERS = (
+    ("examples/torch_quickstart.py", [],
+     ("EQ1 matches: 2 structurally, 0 with", "EQ2 (liked before): 1 path(s)"), "hop"),
+    ("scripts/torch_smoke_engine.py", [], ("ALL SMOKE CHECKS PASSED",), "hop"),
+    ("scripts/torch_smoke_workload.py", [], ("WORKLOAD SMOKE PASSED",), "hop"),
+    ("examples/torch_serve_decode.py", [], ("sampled token ids (first seq):",), "b7"),
+    ("examples/torch_train_lm.py", ["--steps", "20", "--ckpt-dir", str(DRIVERS_CKPT)],
+     ("step 20: loss=", "final loss"), None),
+)
+
+
+def drivers_child() -> int:
+    """The child's body (``chip_smoke.py --drivers``): each driver of
+    DRIVERS in this process, as ``python <file> --device cuda <arguments>``,
+    its output kept in this process's log.  It loads the libraries the
+    parent built and builds none.  Prints an ``examples: <file> rc 0, N s``
+    line a driver with the kernel launches it made, then a JSON line; stops
+    at the first driver that fails (its traceback in the log) with exit
+    code 1, and fails unless the engine drivers launched B1 and B3 and the
+    serve example B7's simt and decode routes."""
+    import contextlib
+    import io
+    import runpy
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import hop_scatter as HK
+
+    missing = [n for n in sorted(build.SIGNATURES) if not build.library_path(n).exists()]
+    if missing:
+        raise SystemExit(f"examples: no library built for {missing}; the child builds none")
+    shutil.rmtree(DRIVERS_CKPT, ignore_errors=True)
+    results, engine = [], dict.fromkeys(HK.LAUNCHES, 0)
+    try:
+        for rel, extra, wants, counters in DRIVERS:
+            HK.reset_launches()
+            FA.reset_launches()
+            buf, argv = io.StringIO(), sys.argv
+            sys.argv = [str(ROOT / rel), "--device", "cuda", *extra]
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    runpy.run_path(str(ROOT / rel), run_name="__main__")
+                torch.cuda.synchronize()
+            except BaseException:
+                sys.stdout.write(buf.getvalue())
+                log(f"examples: {rel} rc 1, {time.perf_counter() - t0:.1f} s")
+                raise
+            finally:
+                sys.argv = argv
+            dt = time.perf_counter() - t0
+            out = buf.getvalue()
+            sys.stdout.write(out)
+            launches = ({k: v for k, v in HK.LAUNCHES.items() if v} if counters == "hop" else
+                        {k: v for k, v in FA.LAUNCHES.items() if v} if counters == "b7" else {})
+            if counters == "hop":
+                for k, v in HK.LAUNCHES.items():
+                    engine[k] += v
+            log(f"examples: {rel} rc 0, {dt:.1f} s" + (f"; launches {launches}" if counters else ""))
+            lost = [w for w in wants if w not in out]
+            if lost:
+                raise AssertionError(f"examples: {rel} printed none of {lost}")
+            if counters == "b7" and not (launches.get("flash_attention_simt")
+                                         and launches.get("flash_attention_decode")):
+                raise AssertionError(f"examples: {rel} did not launch B7's simt and decode "
+                                     f"routes: {launches}")
+            results.append(dict(file=rel, argv=extra, rc=0, seconds=dt, launches=launches))
+    finally:
+        shutil.rmtree(DRIVERS_CKPT, ignore_errors=True)
+    log(f"examples: hop kernel launches over the engine drivers: {engine}")
+    if not (engine["fused_hop_cols"] and engine["scatter_cols"]):
+        raise AssertionError(f"examples: the engine drivers never launched B1 or B3: {engine}")
+    print(json.dumps(dict(drivers=results, engine_launches=engine)), flush=True)
+    return 0
+
+
+def drivers_start() -> tuple:
+    """``chip_smoke.py --drivers`` in a child process (one thread for its
+    host ops, beside the parent's graph generation), its output to
+    build/drivers.log.  Returns (process, log file, start time)."""
+    DRIVERS_LOG.parent.mkdir(parents=True, exist_ok=True)
+    out = open(DRIVERS_LOG, "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--drivers"],
+                            stdout=out, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    return proc, out, time.perf_counter()
+
+
+def drivers_stop(child: tuple) -> None:
+    proc, out, _ = child
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    out.close()
+
+
+def drivers_join(child: tuple) -> dict:
+    """Wait for the drivers' child; its ``examples:`` lines into this log.
+    Fails unless it exited 0 with its JSON line."""
+    proc, out, t_start = child
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=DRIVERS_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    waited = time.perf_counter() - t0
+    drivers_stop(child)
+    text = DRIVERS_LOG.read_text()
+    for ln in text.splitlines():
+        if ln.startswith("examples: "):
+            log(ln)
+    log(f"examples: join waited {waited:.1f} s (the child ran "
+        f"{time.perf_counter() - t_start:.1f} s)")
+    last = [ln for ln in text.splitlines() if ln.startswith('{"drivers"')]
+    if rc != 0 or not last:
+        raise AssertionError(f"examples: the drivers' child failed (rc {rc}): {text[-3000:]}")
+    return dict(json.loads(last[-1]), join_wait_s=waited,
+                child_s=time.perf_counter() - t_start)
+
+
 class Recorder:
     """Finds the largest main-path call of every kernel variant, then
     captures its inputs for the kernels phase.
@@ -710,8 +857,10 @@ def main_jobs(g) -> list:
     return jobs
 
 
-def phase_main(recorder: Recorder):
-    """Returns (report dict, graph, the jobs run: (name, mode, split, batch))."""
+def phase_main(recorder: Recorder, before_upload=None):
+    """Returns (report dict, graph, the jobs run: (name, mode, split, batch)).
+    ``before_upload()`` runs once the graph is made on the host, before
+    anything of it goes to the card."""
     from repro_torch.core import engine as E
     from repro_torch.core import engine_sliced as ES
     from repro_torch.kernels import hop_scatter as HK
@@ -720,6 +869,8 @@ def phase_main(recorder: Recorder):
     t0 = time.perf_counter()
     g.traversal, g.etr_tables  # noqa: B018 — host CSR and ETR rank tables
     t_tables = time.perf_counter() - t0
+    if before_upload is not None:
+        before_upload()
     t0 = time.perf_counter()
     E.prepare_gdev(g, "cuda")
     torch.cuda.synchronize()
@@ -1423,6 +1574,7 @@ def phase_partitioned(graph, jobs, main_rows) -> tuple:
 # =========================================================================
 SERVE_RATE_QPS = 50.0         # the CLI's default --rate
 SERVE_CLI = ["--persons", "1000", "--dynamic", "--queries", "2", "--serve", "--verify"]
+SERVE_EXAMPLE = "examples/torch_temporal_queries.py"    # the first CLI run goes through it
 SERVE_WORKERS = 4             # the partitioned drains' workers (the CLI's default)
 
 
@@ -1675,19 +1827,22 @@ def phase_serve(graph, served: dict) -> dict:
     log(f"serve: launches over the drains and their check flushes: {launches} (bucket "
         f"{bucket['launches']}, static {static['launches']}, replay {replay['launches']})")
 
-    # ---- the CLI a user starts, on a small graph, on each engine choice; the
-    # two runs are independent and run side by side
+    # ---- the CLI a user starts, on a small graph, on each engine choice (the
+    # first through the example that wraps it); the two runs are independent
+    # and run side by side
     clis = []
-    argvs = (SERVE_CLI, SERVE_CLI + ["--engine", "partitioned"])
-    with ThreadPoolExecutor(len(argvs)) as pool:
-        runs = list(pool.map(run_cli, argvs))
-    for argv, (cli, cli_s) in zip(argvs, runs):
+    runs = ((SERVE_EXAMPLE, SERVE_CLI), (None, SERVE_CLI + ["--engine", "partitioned"]))
+    with ThreadPoolExecutor(len(runs)) as pool:
+        done = [pool.submit(run_cli, argv, script) for script, argv in runs]
+    for (script, argv), fut in zip(runs, done):
+        cli, cli_s = fut.result()
         if cli.returncode != 0 or "verification vs oracle: OK" not in cli.stdout:
             raise AssertionError(f"serve: the CLI failed (rc {cli.returncode}): "
                                  f"{cli.stdout[-800:]} {cli.stderr[-1500:]}")
-        log(f"serve: python -m repro_torch.launch.query {' '.join(argv)}: rc 0, "
+        entry = script or "-m repro_torch.launch.query"
+        log(f"serve: python {entry} {' '.join(argv)}: rc 0, "
             f"verification vs oracle: OK ({cli_s:.1f}s)")
-        clis.append(dict(argv=argv, rc=cli.returncode, seconds=cli_s))
+        clis.append(dict(entry=entry, argv=argv, rc=cli.returncode, seconds=cli_s))
     for d in (bucket, static):
         d.pop("counts")
     info.update(bucket=bucket, static=static, partitioned=partitioned, replay=replay,
@@ -1858,11 +2013,13 @@ def live_audit(tracer, tb) -> dict:
     return out
 
 
-def run_cli(argv: list) -> tuple:
-    """``python -m repro_torch.launch.query`` with ``argv`` from the repo's
-    root: (the finished process, its seconds)."""
+def run_cli(argv: list, script: str | None = None) -> tuple:
+    """``python -m repro_torch.launch.query`` (or ``python <script>``, a
+    file of the repo) with ``argv`` from the repo's root: (the finished
+    process, its seconds)."""
+    entry = [str(ROOT / script)] if script else ["-m", "repro_torch.launch.query"]
     t0 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.query"] + argv,
+    cli = subprocess.run([sys.executable, *entry] + argv,
                          cwd=ROOT, capture_output=True, text=True, timeout=600,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     return cli, time.perf_counter() - t0
@@ -3733,7 +3890,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=str(ROOT / "build" / "chip_smoke.json"),
                     help="where the full JSON report is written")
+    ap.add_argument("--drivers", action="store_true",
+                    help="run only the examples and drivers (the child the script starts)")
     args = ap.parse_args(argv)
+    if args.drivers:
+        return drivers_child()
     t_start = time.perf_counter()
     t_mark = [t_start]
 
@@ -3748,9 +3909,14 @@ def main(argv=None) -> int:
 
     phase_build()
     phase_oracle()
+    drivers = drivers_start()     # the card is the child's until the main graph's upload
     lap("device, build, oracle")
     rec = Recorder(HK)
-    REPORT["main"], graph, jobs = phase_main(rec)
+    try:
+        REPORT["main"], graph, jobs = phase_main(
+            rec, lambda: REPORT.__setitem__("examples", drivers_join(drivers)))
+    finally:
+        drivers_stop(drivers)
     lap("main")
     REPORT["profile"] = phase_profile(graph, jobs)
     lap("profile")

@@ -1,6 +1,6 @@
 """The torch port stands alone: it imports neither JAX nor the reference
-package, and ``chip_smoke.py`` and the port's scripts (``scripts/torch_*.py``)
-neither."""
+package, and ``chip_smoke.py``, the port's scripts (``scripts/torch_*.py``)
+and its examples (``examples/torch_*.py``) neither."""
 import ast
 import os
 import subprocess
@@ -13,7 +13,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 def _port_files():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("torch_*.py")))
+            + sorted((ROOT / "scripts").glob("torch_*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _port_modules():
@@ -32,6 +33,11 @@ def _forbidden(name: str) -> bool:
 
 
 def test_no_import_names_jax_or_the_reference():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"examples/torch_quickstart.py", "examples/torch_temporal_queries.py",
+            "examples/torch_serve_decode.py", "examples/torch_train_lm.py",
+            "scripts/torch_smoke_engine.py", "scripts/torch_smoke_workload.py",
+            "scripts/torch_perf_iterations.py"} <= names
     bad = []
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
