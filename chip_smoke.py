@@ -826,6 +826,29 @@ def run_job(graph, job, impl: str = "cuda"):
                                n_buckets=16, device="cuda")
 
 
+def dict_snapshot(d: dict) -> dict:
+    """The keys of ``d`` and the objects under them, nested dicts opened."""
+    return {k: dict_snapshot(v) if isinstance(v, dict) else v for k, v in d.items()}
+
+
+def dict_changes(before: dict, d: dict, path: str = "") -> list:
+    """The paths under which ``d`` no longer holds ``before``'s keys or the
+    very same objects (tuples compared member by member)."""
+    out = [f"{path}{k!r} added" for k in d if k not in before]
+    for k, v in before.items():
+        at = f"{path}{k!r}"
+        if k not in d:
+            out.append(f"{at} removed")
+        elif isinstance(v, dict):
+            out += dict_changes(v, d[k], at + "/")
+        elif isinstance(v, tuple):
+            if len(v) != len(d[k]) or any(a is not b for a, b in zip(v, d[k])):
+                out.append(f"{at} replaced")
+        elif d[k] is not v:
+            out.append(f"{at} replaced")
+    return out
+
+
 def main_graph():
     """The main path's LDBC graph (PERSONS, SEED) and its generate seconds."""
     from repro_torch.graphdata.ldbc import LdbcParams, generate_ldbc
@@ -872,9 +895,10 @@ def phase_main(recorder: Recorder, before_upload=None):
     if before_upload is not None:
         before_upload()
     t0 = time.perf_counter()
-    E.prepare_gdev(g, "cuda")
+    gdev = E.prepare_gdev(g, "cuda")
     torch.cuda.synchronize()
     t_upload = time.perf_counter() - t0
+    gdev_before = dict_snapshot(gdev)
     info = dict(persons=PERSONS, seed=SEED, n_vertices=g.n_vertices, n_edges=g.n_edges,
                 n_traversal_edges=2 * g.n_edges, generate_s=t_gen, tables_s=t_tables,
                 upload_s=t_upload)
@@ -943,6 +967,14 @@ def phase_main(recorder: Recorder, before_upload=None):
     info["launches"] = launches
     info["rows"] = rows
     log(f"main: launches over the main path: {launches}")
+    # the executors write nothing into the device graph they are given
+    changed = dict_changes(gdev_before, E.prepare_gdev(g, "cuda"))
+    info["gdev_unchanged"] = not changed
+    log(f"main: device graph after the {len(jobs)} jobs: "
+        + (f"unchanged ({len(gdev_before)} keys, the same tensors)" if not changed
+           else "CHANGED: " + "; ".join(changed[:8])))
+    if changed:
+        raise AssertionError(f"the main path wrote into the device graph: {changed[:8]}")
     missing = [k for k in ("fused_hop_cols", "fused_hop_interval", "scatter_cols")
                if launches[k] == 0]
     if missing:

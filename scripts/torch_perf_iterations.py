@@ -194,11 +194,8 @@ def granite_sliced_cell(shape_name: str, mesh) -> common.ShapeCell:
     V, E2 = GL.V_FULL, 2 * GL.E_FULL
 
     def run(gdev, params, bedges):
-        # the port's plan runs a batch of queries: this one as a batch of 1.
-        # The sliced plan caches each slice's pointer in the device graph it
-        # is given: a copy keeps the cell's arguments as they are and every
-        # trace counting the pointers' slicing
-        out = ES.execute_plan_sliced(dict(gdev), qry, split, mode, n_buckets, params[None],
+        # the port's plan runs a batch of queries: this one as a batch of 1
+        out = ES.execute_plan_sliced(gdev, qry, split, mode, n_buckets, params[None],
                                      bedges, sb, impl="torch")
         if info["agg"]:
             return out.total[0], out.per_vertex[0]

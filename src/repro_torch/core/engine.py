@@ -429,7 +429,11 @@ def batch_executable(
     gdev = prepare_gdev(graph, dev)
     bedges = bucket_edges_for(graph, n_buckets, dev)
     V = graph.n_vertices
-    sb = ES.SliceBounds.from_graph(graph) if use_sliced else None
+    sb = ptrs = None
+    if use_sliced:
+        # the slices' CSR pointers are made once per executable, not per run
+        sb = ES.SliceBounds.from_graph(graph)
+        ptrs = ES.slice_ptrs(gdev, sb, ES.arrival_types(qry, split))
     embed = None
     if use_sliced and qry.agg_op != Q.AGG_NONE:
         embed = sb.v[qry.v_preds[0].vtype]
@@ -439,7 +443,8 @@ def batch_executable(
         with torch.no_grad():
             if use_sliced:
                 out = ES.execute_plan_sliced(gdev, qry, split, mode, n_buckets,
-                                             params, bedges, sb, impl=impl)
+                                             params, bedges, sb, impl=impl,
+                                             ptrs=ptrs)
             else:
                 out = execute_plan(gdev, qry, split, mode, n_buckets, params,
                                    bedges, impl=impl)

@@ -15,14 +15,14 @@ Requires: every vertex predicate carries a type (the LDBC workload does), and
 the aggregate, if any, is COUNT.  ``engine.execute`` routes other queries to
 the dense executor.
 
-On the kernel path a hop delivers into its arrival-type slice through the
-slice's own CSR pointer ``arr_ptr[vlo:vhi+1] - arr_ptr[vlo]``; out-of-slice
-sources read the fused kernel's zero row.
+A hop delivers into its arrival-type slice through the slice's own CSR
+pointer ``arr_ptr[vlo:vhi+1] - arr_ptr[vlo]`` (``slice_ptrs``); on the kernel
+path out-of-slice sources read the fused kernel's zero row.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -49,16 +49,19 @@ class SliceBounds:
         return SliceBounds(v, e)
 
 
-def slice_ptr(gdev, vb, eb) -> torch.Tensor:
-    """int32 CSR pointer of the edges arriving at the vertex slice ``vb``,
-    relative to its edge slice ``eb`` (cached in ``gdev``)."""
-    key = ("slice_ptr", vb)
-    p = gdev.get(key)
-    if p is None:
-        vlo, vhi = vb
-        p = (gdev["arr_ptr"][vlo:vhi + 1] - eb[0]).contiguous()
-        gdev[key] = p
-    return p
+def arrival_types(qry: Q.PathQuery, split: int) -> list:
+    """The vertex types a plan's hops deliver into: the forward segment
+    arrives at v_1..v_split, the reversed segment at v_{n-2}..v_split."""
+    v = list(qry.v_preds)
+    return [p.vtype for p in v[1: split + 1] + v[split: len(v) - 1]]
+
+
+def slice_ptrs(gdev, sb: SliceBounds, vtypes) -> Dict[int, torch.Tensor]:
+    """Per vertex type in ``vtypes``: the int32 CSR pointer of the edges
+    arriving at that type's vertex slice, relative to its edge slice.  A new
+    dict; nothing is written into ``gdev``."""
+    return {vt: gdev["arr_ptr"][sb.v[vt][0]:sb.v[vt][1] + 1] - sb.e[vt][0]
+            for vt in dict.fromkeys(vtypes)}
 
 
 def _vertex_eval_sliced(gdev, vp, params, pbase, mode, bedges, vb):
@@ -125,7 +128,7 @@ class _SegResult:
 
 
 def _run_segment_sliced(gdev, v_preds, e_preds, params, pv, pe, mode,
-                        n_buckets, backward, sb: SliceBounds, bedges,
+                        n_buckets, backward, sb: SliceBounds, bedges, ptrs,
                         impl: str = "torch", need_final_e: bool = True):
     fused = use_kernels(impl)
     vb0 = sb.v[v_preds[0].vtype]
@@ -177,7 +180,7 @@ def _run_segment_sliced(gdev, v_preds, e_preds, params, pv, pe, mode,
                  if need_e else None)
         del src_val
         nvlo, nvhi = nxt_vb
-        ptr = slice_ptr(gdev, nxt_vb, cur_eb)
+        ptr = ptrs[v_preds[i + 1].vtype]
         if fused and ep.etr_op == -1:
             # fused kernel hop on the arrival-type slice: out-of-slice
             # sources point at the kernel's zero row instead of clip+mask
@@ -209,20 +212,25 @@ def _zero_output(qry, mode, n_buckets, sb, want_agg, nq, device):
 
 def execute_plan_sliced(gdev, qry: Q.PathQuery, split: int, mode: int,
                         n_buckets: int, params, bedges, sb: SliceBounds,
-                        impl: str = "torch") -> ExecOutput:
+                        impl: str = "torch", ptrs=None) -> ExecOutput:
     """Sliced twin of ``engine.execute_plan`` (counts + count-aggregates) for
-    a batch of same-shape queries (``params`` int32 [Q, n_clauses, 3])."""
+    a batch of same-shape queries (``params`` int32 [Q, n_clauses, 3]).
+
+    ``ptrs`` maps each arrival type of the plan to its slice's CSR pointer
+    (``slice_ptrs``); a caller that runs the plan again passes it to make the
+    pointers once.  Without it they are made here, each once a call.  The
+    plan writes into none of its arguments."""
     n = qry.n_vertices
     nq = params.shape[0]
     pv, pe = pbases(qry)
     want_agg = qry.agg_op != Q.AGG_NONE
     if any(sb.v[v.vtype][1] <= sb.v[v.vtype][0] for v in qry.v_preds):
         return _zero_output(qry, mode, n_buckets, sb, want_agg, nq, params.device)
-    # arrival types of this plan: forward segment arrives at v_1..v_split,
-    # reversed segment arrives at v_{n-2}..v_split
-    arrival_preds = list(qry.v_preds[1: split + 1]) + list(qry.v_preds[split: n - 1])
-    if any(sb.e[v.vtype][1] <= sb.e[v.vtype][0] for v in arrival_preds):
+    arrivals = arrival_types(qry, split)
+    if any(sb.e[vt][1] <= sb.e[vt][0] for vt in arrivals):
         return _zero_output(qry, mode, n_buckets, sb, want_agg, nq, params.device)
+    if ptrs is None:
+        ptrs = slice_ptrs(gdev, sb, arrivals)
     if want_agg:
         assert qry.agg_op == Q.AGG_COUNT, "sliced path: count aggregates"
         assert split == 0
@@ -234,7 +242,7 @@ def execute_plan_sliced(gdev, qry: Q.PathQuery, split: int, mode: int,
         left = _run_segment_sliced(gdev, qry.v_preds[: split + 1],
                                    qry.e_preds[:split], params,
                                    pv[: split + 1], pe[:split], mode,
-                                   n_buckets, False, sb, bedges, impl,
+                                   n_buckets, False, sb, bedges, ptrs, impl,
                                    need_final_e=etr_at_join)
     right = None
     m_hops = (n - 1) - split
@@ -244,7 +252,7 @@ def execute_plan_sliced(gdev, qry: Q.PathQuery, split: int, mode: int,
         right = _run_segment_sliced(gdev, rev.v_preds[: m_hops + 1],
                                     rev.e_preds[:m_hops], params,
                                     rpv[: m_hops + 1], rpe[:m_hops], mode,
-                                    n_buckets, True, sb, bedges, impl,
+                                    n_buckets, True, sb, bedges, ptrs, impl,
                                     need_final_e=etr_at_join)
 
     vb = sb.v[qry.v_preds[split].vtype]
